@@ -17,7 +17,10 @@
 //
 // What bounds them on this card: ~160 integer ALU operations per generated
 // entry against 4 bytes written (counter rows) or a 2*C-FLOP contraction
-// (fused product) -- both are bound by the integer pipes, not by HBM.
+// (fused product) -- both are bound by the integer pipes, not by HBM.  The
+// contraction's float64 instantiation (the serving default: its products
+// feed a decode) adds C double FMAs per entry, well under the threefry
+// cost.
 //
 // Design.  counter_parity_rows takes an explicit column-index operand, so
 // decode minors derive only the columns they need (R[par, unk],
@@ -102,34 +105,44 @@ counter_rows_kernel(uint32_t k0, uint32_t k1, float scale,
 
 constexpr int GP_ROWS = 8, GP_THREADS = 256, GP_WARPS = GP_THREADS / 32;
 
-template <int CC>
+__device__ __forceinline__ float fma_t(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
+// T is the type of WX, of the accumulator and of Y.  With T = double each
+// float32 R entry is widened exactly and contracted against the float64
+// WX in double: the products feed an MDS decode, which would amplify any
+// float32 rounding they carried.
+template <typename T, int CC>
 __global__ void __launch_bounds__(GP_THREADS)
 gen_parity_kernel(uint32_t k0, uint32_t k1, float scale,
                   const uint32_t* __restrict__ ctrs, int n,
-                  const float* __restrict__ WX, int L,
-                  float* __restrict__ Y) {
-  __shared__ float red[GP_WARPS][GP_ROWS * CC];
+                  const T* __restrict__ WX, int L, T* __restrict__ Y) {
+  __shared__ T red[GP_WARPS][GP_ROWS * CC];
   const int r0 = blockIdx.x * GP_ROWS;
   const int nr = min(GP_ROWS, n - r0);          // rows of this block
   uint32_t ctr[GP_ROWS];
 #pragma unroll
   for (int r = 0; r < GP_ROWS; ++r) ctr[r] = r < nr ? ctrs[r0 + r] : 0u;
-  float acc[GP_ROWS][CC];
+  T acc[GP_ROWS][CC];
 #pragma unroll
   for (int r = 0; r < GP_ROWS; ++r)
 #pragma unroll
-    for (int c = 0; c < CC; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < CC; ++c) acc[r][c] = T(0);
 
   for (int j = threadIdx.x; j < L; j += GP_THREADS) {
-    float wx[CC];
+    T wx[CC];
 #pragma unroll
     for (int c = 0; c < CC; ++c) wx[c] = WX[(size_t)j * CC + c];
 #pragma unroll
     for (int r = 0; r < GP_ROWS; ++r) {
       if (r < nr) {                               // uniform across the block
-        const float v = parity_entry(k0, k1, ctr[r], (uint32_t)j, scale);
+        const T v = T(parity_entry(k0, k1, ctr[r], (uint32_t)j, scale));
 #pragma unroll
-        for (int c = 0; c < CC; ++c) acc[r][c] = fmaf(v, wx[c], acc[r][c]);
+        for (int c = 0; c < CC; ++c) acc[r][c] = fma_t(v, wx[c], acc[r][c]);
       }
     }
   }
@@ -138,7 +151,7 @@ gen_parity_kernel(uint32_t k0, uint32_t k1, float scale,
   for (int r = 0; r < GP_ROWS; ++r)
 #pragma unroll
     for (int c = 0; c < CC; ++c) {
-      float v = acc[r][c];
+      T v = acc[r][c];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -148,20 +161,39 @@ gen_parity_kernel(uint32_t k0, uint32_t k1, float scale,
   for (int t = threadIdx.x; t < GP_ROWS * CC; t += GP_THREADS) {
     const int r = t / CC;
     if (r >= nr) continue;
-    float s = 0.f;
+    T s = T(0);
 #pragma unroll
     for (int w = 0; w < GP_WARPS; ++w) s += red[w][t];
     Y[(size_t)(r0 + r) * CC + (t % CC)] = s;
   }
 }
 
-template <int CC>
+template <typename T, int CC>
 int launch_gen(uint32_t k0, uint32_t k1, float scale, const uint32_t* ctrs,
-               int n, const float* WX, int L, float* Y, cudaStream_t st) {
+               int n, const T* WX, int L, T* Y, cudaStream_t st) {
   const int blocks = (n + GP_ROWS - 1) / GP_ROWS;
-  gen_parity_kernel<CC><<<blocks, GP_THREADS, 0, st>>>(k0, k1, scale, ctrs,
-                                                      n, WX, L, Y);
+  gen_parity_kernel<T, CC><<<blocks, GP_THREADS, 0, st>>>(k0, k1, scale,
+                                                         ctrs, n, WX, L, Y);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int contract(uint32_t k0, uint32_t k1, float scale, const uint32_t* ctrs,
+             int n, const void* WXv, int L, int C, void* Yv,
+             cudaStream_t st) {
+  const T* WX = static_cast<const T*>(WXv);
+  T* Y = static_cast<T*>(Yv);
+  switch (C) {
+    case 1: return launch_gen<T, 1>(k0, k1, scale, ctrs, n, WX, L, Y, st);
+    case 2: return launch_gen<T, 2>(k0, k1, scale, ctrs, n, WX, L, Y, st);
+    case 3: return launch_gen<T, 3>(k0, k1, scale, ctrs, n, WX, L, Y, st);
+    case 4: return launch_gen<T, 4>(k0, k1, scale, ctrs, n, WX, L, Y, st);
+    case 5: return launch_gen<T, 5>(k0, k1, scale, ctrs, n, WX, L, Y, st);
+    case 6: return launch_gen<T, 6>(k0, k1, scale, ctrs, n, WX, L, Y, st);
+    case 7: return launch_gen<T, 7>(k0, k1, scale, ctrs, n, WX, L, Y, st);
+    case 8: return launch_gen<T, 8>(k0, k1, scale, ctrs, n, WX, L, Y, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -181,23 +213,15 @@ int repro_counter_parity_rows(uint32_t k0, uint32_t k1, float scale,
   return (int)cudaGetLastError();
 }
 
-// Y (n, C) = R(ctrs, 0..L-1) @ WX, WX (L, C) float32 row-major, 1 <= C <= 8.
-int repro_gen_parity_contract(uint32_t k0, uint32_t k1, float scale,
-                              const uint32_t* ctrs, int n, const float* WX,
-                              int L, int C, float* Y, void* stream) {
+// Y (n, C) = R(ctrs, 0..L-1) @ WX, WX (L, C) row-major, 1 <= C <= 8;
+// `f64` selects float64 WX, accumulation and Y (else float32 throughout).
+int repro_gen_parity_contract(int f64, uint32_t k0, uint32_t k1, float scale,
+                              const uint32_t* ctrs, int n, const void* WX,
+                              int L, int C, void* Y, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n <= 0) return 0;
-  switch (C) {
-    case 1: return launch_gen<1>(k0, k1, scale, ctrs, n, WX, L, Y, st);
-    case 2: return launch_gen<2>(k0, k1, scale, ctrs, n, WX, L, Y, st);
-    case 3: return launch_gen<3>(k0, k1, scale, ctrs, n, WX, L, Y, st);
-    case 4: return launch_gen<4>(k0, k1, scale, ctrs, n, WX, L, Y, st);
-    case 5: return launch_gen<5>(k0, k1, scale, ctrs, n, WX, L, Y, st);
-    case 6: return launch_gen<6>(k0, k1, scale, ctrs, n, WX, L, Y, st);
-    case 7: return launch_gen<7>(k0, k1, scale, ctrs, n, WX, L, Y, st);
-    case 8: return launch_gen<8>(k0, k1, scale, ctrs, n, WX, L, Y, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return f64 ? contract<double>(k0, k1, scale, ctrs, n, WX, L, C, Y, st)
+             : contract<float>(k0, k1, scale, ctrs, n, WX, L, C, Y, st);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
-"""Hand-written Hopper kernels of the coded-serving path, their plain-torch
-twins (:mod:`.ref`) and the padding/dispatch layer (:mod:`.ops`).
+"""Hand-written Hopper kernels of the port (coded serving, the static
+executor, the streaming verify), their plain-torch twins (:mod:`.ref`) and
+the padding/dispatch layer (:mod:`.ops`).
 
 Each wrapper counts its launches in a plain integer;
 :func:`launch_counts` / :func:`reset_launch_counts` read and clear them, so
@@ -15,6 +16,7 @@ __all__ = ["launch_counts", "reset_launch_counts"]
 def launch_counts() -> Dict[str, int]:
     return {"matmul": matmul.LAUNCHES,
             "coded_matvec": coded_matvec.LAUNCHES,
+            "mds_encode": mds_encode.ENCODE_LAUNCHES,
             "counter_parity_rows": mds_encode.ROWS_LAUNCHES,
             "gen_parity_matvec": mds_encode.GEN_LAUNCHES}
 
@@ -22,5 +24,6 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     matmul.LAUNCHES = 0
     coded_matvec.LAUNCHES = 0
+    mds_encode.ENCODE_LAUNCHES = 0
     mds_encode.ROWS_LAUNCHES = 0
     mds_encode.GEN_LAUNCHES = 0

@@ -1,11 +1,18 @@
 """Skinny coded product Y = Ã @ X — the port of
-``repro.kernels.coded_matvec.coded_matvec_pallas``.
+``repro.kernels.coded_matvec.coded_matvec_pallas``, with an optional task
+axis (the reference's ``vmap`` of it in ``ops.coded_matvec_batch``).
 
 The CUDA kernel is ``csrc/coded_matvec.cu`` (design notes there).  On a
 CPU tensor :func:`coded_matvec` runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
+
+Types: float32 in → float32 out (the reference's numerics), float32 in →
+float64 out (products that feed an MDS decode: exact products, float64
+sums), float64 in → float64 out (the static executor).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -18,42 +25,66 @@ __all__ = ["coded_matvec", "coded_matvec_cuda", "LAUNCHES"]
 #: kernel launches since the last reset (see :mod:`repro_torch.kernels`)
 LAUNCHES = 0
 
+#: (input dtype, output dtype) → the C entry point's ``types`` code
+_TYPES = {(torch.float32, torch.float32): 0,
+          (torch.float32, torch.float64): 1,
+          (torch.float64, torch.float64): 2}
+
 
 def _lib():
     lib = _build.library("coded_matvec")
     if not getattr(lib, "_typed", False):
-        lib.repro_coded_matvec_f32.argtypes = [P, P, P, I, I, I, P]
-        lib.repro_coded_matvec_f32.restype = I
+        lib.repro_coded_matvec.argtypes = [I, P, P, P, I, I, I, I, I, P]
+        lib.repro_coded_matvec.restype = I
         lib._typed = True
     return lib
 
 
-def coded_matvec_cuda(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Y (R, C) = A (R, K) @ X (K, C) on the card, float32; K % 4 == 0."""
+def coded_matvec_cuda(a: torch.Tensor, x: torch.Tensor, *,
+                      out_dtype: Optional[torch.dtype] = None
+                      ) -> torch.Tensor:
+    """Y = A @ X on the card: ``a`` (R, K) with ``x`` (K, C), or ``a``
+    (B, R, K) with ``x`` (B, K, C), one launch per 8 columns of X (the
+    task axis is in the grid).  ``out_dtype`` defaults to the input dtype;
+    K must be a multiple of the 16-byte vector width."""
     global LAUNCHES
     dev = a.device
-    check_cuda("coded_matvec a", a, torch.float32, 2, dev)
-    check_cuda("coded_matvec x", x, torch.float32, 2, dev)
-    R, K = a.shape
-    if x.shape[0] != K:
-        raise ValueError(f"coded_matvec: inner dims differ, {tuple(a.shape)}"
-                         f" @ {tuple(x.shape)}")
-    if K % 4 or a.data_ptr() % 16:
-        raise ValueError("coded_matvec: the contraction width must be a "
-                         "multiple of 4 and A 16-byte aligned (float4 loads)")
-    C = x.shape[1]
-    y = torch.empty((R, C), dtype=torch.float32, device=dev)
-    err = _lib().repro_coded_matvec_f32(a.data_ptr(), x.data_ptr(),
-                                        y.data_ptr(), R, K, C,
+    out_dtype = a.dtype if out_dtype is None else out_dtype
+    types = _TYPES.get((a.dtype, out_dtype))
+    if types is None:
+        raise ValueError(f"coded_matvec: unsupported types {a.dtype} -> "
+                         f"{out_dtype}")
+    nd = a.dim()
+    if nd not in (2, 3):
+        raise ValueError(f"coded_matvec: expected 2-D or 3-D A, got shape "
+                         f"{tuple(a.shape)}")
+    check_cuda("coded_matvec a", a, a.dtype, nd, dev)
+    check_cuda("coded_matvec x", x, a.dtype, nd, dev)
+    B = a.shape[0] if nd == 3 else 1
+    R, K = a.shape[-2:]
+    if x.shape[-2] != K or (nd == 3 and x.shape[0] != B):
+        raise ValueError(f"coded_matvec: shapes differ, {tuple(a.shape)} @ "
+                         f"{tuple(x.shape)}")
+    vec = 16 // a.element_size()
+    if K % vec or a.data_ptr() % 16:
+        raise ValueError(f"coded_matvec: the contraction width must be a "
+                         f"multiple of {vec} and A 16-byte aligned (16-byte "
+                         f"loads)")
+    C = x.shape[-1]
+    y = torch.empty(a.shape[:-1] + (C,), dtype=out_dtype, device=dev)
+    for c0 in range(0, C, 8):        # one launch per 8-column chunk
+        err = _lib().repro_coded_matvec(types, a.data_ptr(), x.data_ptr(),
+                                        y.data_ptr(), B, R, K, C, c0,
                                         stream_ptr(dev))
-    raise_on_error("coded_matvec", err)
-    LAUNCHES += 1
+        raise_on_error("coded_matvec", err)
+        LAUNCHES += 1
     return y
 
 
-def coded_matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Y = Ã @ X for X (K, C): the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+def coded_matvec(a: torch.Tensor, x: torch.Tensor, *,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Y = Ã @ X for X (K, C) (or a stack of both): the kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     if a.device.type == "cpu":
-        return coded_matvec_ref(a, x)
-    return coded_matvec_cuda(a, x)
+        return coded_matvec_ref(a, x, out_dtype=out_dtype)
+    return coded_matvec_cuda(a, x, out_dtype=out_dtype)

@@ -1,24 +1,29 @@
-"""Counter-derived parity kernels — the ports of
-``repro.kernels.mds_encode.counter_parity_rows_pallas`` and
+"""MDS encode kernels — the ports of
+``repro.kernels.mds_encode.mds_encode_pallas`` (Ã = G @ A, with the
+systematic prefix copied through and a task axis, as ``ops.mds_encode`` /
+``ops.mds_encode_batch`` drive it), ``counter_parity_rows_pallas`` and
 ``gen_parity_matvec_pallas``.
 
-The CUDA kernels are in ``csrc/mds_encode.cu`` (design notes there).  On
-CPU tensors the wrappers run the plain versions; on CUDA tensors they
-launch the kernels or raise.  ``mds_encode_pallas`` (Ã = G @ A for the
-static executor) is not ported yet.
+The CUDA kernels are in ``csrc/mds_encode_gemm.cu`` and
+``csrc/mds_encode.cu`` (design notes there).  On CPU tensors the wrappers
+run the plain versions; on CUDA tensors they launch the kernels or raise.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import _build
 from ._launch import F32, I, P, U32, check_cuda, raise_on_error, stream_ptr
 from .coded_matvec import coded_matvec
-from .ref import counter_parity_rows_ref, gen_parity_ref
+from .ref import counter_parity_rows_ref, gen_parity_ref, mds_encode_ref
 
-__all__ = ["counter_parity_rows_dev", "gen_parity_matvec", "ROWS_LAUNCHES",
-           "GEN_LAUNCHES"]
+__all__ = ["mds_encode_dev", "counter_parity_rows_dev", "gen_parity_matvec",
+           "ENCODE_LAUNCHES", "ROWS_LAUNCHES", "GEN_LAUNCHES"]
 
+#: launches of the encode GEMM since the last reset
+ENCODE_LAUNCHES = 0
 #: launches of the counter-rows kernel since the last reset
 ROWS_LAUNCHES = 0
 #: launches of the generated-parity contraction kernel since the last reset
@@ -33,11 +38,61 @@ def _lib():
         lib.repro_counter_parity_rows.argtypes = [U32, U32, F32, P, I, P, I,
                                                   P, P]
         lib.repro_counter_parity_rows.restype = I
-        lib.repro_gen_parity_contract.argtypes = [U32, U32, F32, P, I, P, I,
-                                                  I, P, P]
+        lib.repro_gen_parity_contract.argtypes = [I, U32, U32, F32, P, I, P,
+                                                  I, I, P, P]
         lib.repro_gen_parity_contract.restype = I
         lib._typed = True
     return lib
+
+
+def _gemm_lib():
+    lib = _build.library("mds_encode_gemm")
+    if not getattr(lib, "_typed", False):
+        lib.repro_mds_encode.argtypes = [I, P, ctypes.c_longlong, P, P, I, I,
+                                         I, I, I, P]
+        lib.repro_mds_encode.restype = I
+        lib._typed = True
+    return lib
+
+
+def mds_encode_dev(g: torch.Tensor, a: torch.Tensor, *,
+                   systematic: bool = True) -> torch.Tensor:
+    """Ã_b = G_b @ A_b for a stack: ``a`` (B, L, S), ``g`` one shared
+    (L̃, L) generator or per-task (B, L̃, L), one dtype (float32 or
+    float64, which is also the accumulation type) → (B, L̃, S).
+
+    With ``systematic`` and L̃ > L, G's top L rows are taken to be I_L: the
+    first L output rows are A's, bit-exact, and only the parity rows are
+    multiplied.  One launch for the whole stack."""
+    global ENCODE_LAUNCHES
+    if a.dim() != 3 or g.dim() not in (2, 3):
+        raise ValueError(f"mds_encode: expected a (B, L, S) and g (L~, L) or "
+                         f"(B, L~, L), got {tuple(a.shape)}, "
+                         f"{tuple(g.shape)}")
+    B, L, S = a.shape
+    Lt = g.shape[-2]
+    if g.shape[-1] != L or (g.dim() == 3 and g.shape[0] != B):
+        raise ValueError(f"mds_encode: g {tuple(g.shape)} does not match a "
+                         f"{tuple(a.shape)}")
+    sys = systematic and Lt > L
+    dev = a.device
+    if dev.type == "cpu":
+        if not sys:
+            return mds_encode_ref(g, a)
+        return torch.cat([a, mds_encode_ref(g[..., L:, :], a)], dim=1)
+    if a.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"mds_encode: expected float32 or float64, got "
+                         f"{a.dtype}")
+    check_cuda("mds_encode a", a, a.dtype, 3, dev)
+    check_cuda("mds_encode g", g, a.dtype, g.dim(), dev)
+    out = torch.empty((B, Lt, S), dtype=a.dtype, device=dev)
+    err = _gemm_lib().repro_mds_encode(
+        int(a.dtype == torch.float64), g.data_ptr(),
+        Lt * L if g.dim() == 3 else 0, a.data_ptr(), out.data_ptr(), B, Lt,
+        L, S, int(sys), stream_ptr(dev))
+    raise_on_error("mds_encode", err)
+    ENCODE_LAUNCHES += 1
+    return out
 
 
 def _as_u32(t: torch.Tensor) -> torch.Tensor:
@@ -72,28 +127,35 @@ def counter_parity_rows_dev(key, scale: float, ctrs: torch.Tensor,
 
 
 def gen_parity_matvec(key, scale: float, ctrs: torch.Tensor, w: torch.Tensor,
-                      x: torch.Tensor) -> torch.Tensor:
-    """Generated-parity products ``R_gen[ctrs] @ (W @ x)`` (n, C) float32.
+                      x: torch.Tensor, *,
+                      out_dtype: torch.dtype = torch.float64) -> torch.Tensor:
+    """Generated-parity products ``R_gen[ctrs] @ (W @ x)`` (n, C).
 
-    ``w`` (L, D) float32 systematic weights, ``x`` (D, C).  On the card
-    ``W @ x`` runs once through the coded_matvec kernel and the contraction
-    kernel derives every R entry in registers — no R and no WR in memory."""
+    ``w`` (L, D) float32 systematic weights, ``x`` (D, C) float32.
+    ``out_dtype`` float64 (the default: the products feed a decode)
+    accumulates both products in float64; float32 is the reference's
+    numerics.  On the card ``W @ x`` runs once through the coded_matvec
+    kernel and the contraction kernel derives every R entry in registers —
+    no R and no WR in memory."""
     global GEN_LAUNCHES
     dev = w.device
+    if out_dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"gen_parity: unsupported output {out_dtype}")
     if dev.type == "cpu":
-        return gen_parity_ref(key, scale, ctrs, w, x)
+        return gen_parity_ref(key, scale, ctrs, w, x, out_dtype=out_dtype)
     L = w.shape[0]
     n, C = ctrs.numel(), x.shape[1]
     c32 = _as_u32(ctrs)
     check_cuda("gen_parity ctrs", c32, torch.int32, 1, dev)
-    wx = coded_matvec(w, x.contiguous())               # (L, C), one launch
-    out = torch.empty((n, C), dtype=torch.float32, device=dev)
+    wx = coded_matvec(w, x.contiguous(), out_dtype=out_dtype)   # (L, C)
+    out = torch.empty((n, C), dtype=out_dtype, device=dev)
     for c0 in range(0, C, 8):
         cc = min(8, C - c0)
         wxc = wx[:, c0:c0 + cc].contiguous() if C > 8 else wx
-        yc = out if C <= 8 else torch.empty((n, cc), dtype=torch.float32,
+        yc = out if C <= 8 else torch.empty((n, cc), dtype=out_dtype,
                                              device=dev)
         err = _lib().repro_gen_parity_contract(
+            int(out_dtype == torch.float64),
             int(key[0]) & _M32, int(key[1]) & _M32, float(scale),
             c32.data_ptr(), n, wxc.data_ptr(), L, cc, yc.data_ptr(),
             stream_ptr(dev))

@@ -2,12 +2,19 @@
 ``repro.kernels.ops``.
 
 Same signatures and shape conventions as the reference: (S,) vs (S, B)
-vectors, 128-aligned packed shard tiles, generated-parity lane specs.  The
-kernels mask their own ragged edges, so ``matmul`` needs no padding; the
-skinny product pads its contraction to ``block_k`` exactly as the
-reference does (which also gives the kernel's 16-byte rows).  Every call
-on a CUDA tensor launches the hand-written kernel or raises; CPU tensors
-take the plain version (:mod:`repro_torch.kernels.ref`).
+vectors, 128-aligned packed shard tiles, generated-parity lane specs,
+shared or per-task generators.  The kernels mask their own ragged edges,
+so ``matmul`` and ``mds_encode`` need no padding; the skinny product pads
+its contraction to ``block_k`` exactly as the reference does (which also
+gives the kernel's 16-byte rows), and ``coded_matvec_batch`` only to the
+16-byte vector width (its operands are the executor's whole task
+matrices).  Every call on a CUDA tensor launches the hand-written kernel
+or raises; CPU tensors take the plain version
+(:mod:`repro_torch.kernels.ref`).
+
+Products that feed an MDS decode (``coded_shard_matmul_batch``,
+``gen_parity_products``) come out in float64 by default: float32 inputs,
+exact products, float64 sums.
 """
 from __future__ import annotations
 
@@ -21,9 +28,11 @@ from ..device import resolve_device
 from ..obs import device_span
 from .coded_matvec import coded_matvec as _coded_matvec
 from .matmul import matmul
-from .mds_encode import counter_parity_rows_dev, gen_parity_matvec
+from .mds_encode import (counter_parity_rows_dev, gen_parity_matvec,
+                         mds_encode_dev)
 
-__all__ = ["matmul", "coded_matvec", "coded_shard_matmul_batch",
+__all__ = ["matmul", "mds_encode", "mds_encode_batch", "coded_matvec",
+           "coded_matvec_batch", "coded_shard_matmul_batch",
            "counter_parity_rows", "parity_scale", "gen_parity_products",
            "GeneratedParity"]
 
@@ -61,6 +70,43 @@ def coded_matvec(a_tilde: torch.Tensor, x: torch.Tensor, *,
     return y[:, 0] if squeeze else y
 
 
+def mds_encode(g: torch.Tensor, a: torch.Tensor, *,
+               systematic: bool = True) -> torch.Tensor:
+    """Ã = G @ A for G (L̃, L), A (L, S).  With ``systematic`` the identity
+    prefix is copied through bit-exact and only the parity rows are
+    multiplied.  float64 A encodes in float64, anything else in float32."""
+    return mds_encode_batch(g, a[None], systematic=systematic)[0]
+
+
+def mds_encode_batch(g: torch.Tensor, a: torch.Tensor, *,
+                     systematic: bool = True) -> torch.Tensor:
+    """Batched Ã_b = G_b @ A_b over a leading task axis, in one launch.
+
+    ``g`` is (B, L̃, L) per-task generators or a shared (L̃, L); ``a`` is
+    (B, L, S)."""
+    dt = torch.float64 if a.dtype == torch.float64 else torch.float32
+    return mds_encode_dev(g.to(dt).contiguous(), a.to(dt).contiguous(),
+                          systematic=systematic)
+
+
+def coded_matvec_batch(a_tilde: torch.Tensor,
+                       x: torch.Tensor) -> torch.Tensor:
+    """Batched per-task coded products y_b = Ã_b @ x_b, in one launch
+    per 8 columns of x.
+
+    ``a_tilde`` (B, L, S), ``x`` (B, S) or (B, S, C) → (B, L[, C]).
+    float64 operands run in float64, anything else in float32."""
+    squeeze = x.dim() == 2
+    xm = x[..., None] if squeeze else x
+    dt = torch.float64 if (a_tilde.dtype == torch.float64
+                           and x.dtype == torch.float64) else torch.float32
+    vec = 2 if dt == torch.float64 else 4       # 16-byte loads
+    ap = _pad_to(a_tilde.to(dt), 2, vec).contiguous()
+    xp = _pad_to(xm.to(dt), 1, vec).contiguous()
+    y = _coded_matvec(ap, xp)
+    return y[..., 0] if squeeze else y
+
+
 def counter_parity_rows(key: Tuple[int, int], L: int, ctrs, *,
                         cols=None, device=None) -> torch.Tensor:
     """Counter-derived parity generator rows R[ctrs] (n, L) float32 — or
@@ -79,8 +125,11 @@ def counter_parity_rows(key: Tuple[int, int], L: int, ctrs, *,
 
 
 def gen_parity_products(key: Tuple[int, int], ctrs, w: torch.Tensor,
-                        x: torch.Tensor) -> torch.Tensor:
-    """Generated-parity shard products (n, C): ``R_gen[ctrs] @ (W @ x)``.
+                        x: torch.Tensor, *,
+                        out_dtype: torch.dtype = torch.float64
+                        ) -> torch.Tensor:
+    """Generated-parity shard products (n, C): ``R_gen[ctrs] @ (W @ x)``,
+    accumulated and returned in ``out_dtype``.
 
     ``w`` (L, D) float32 systematic weights (device-resident), ``x``
     (D', C) with D' ≥ D — rows beyond D are the packed tiles' zero padding
@@ -92,7 +141,7 @@ def gen_parity_products(key: Tuple[int, int], ctrs, w: torch.Tensor,
     with device_span("gen_parity_products", cat="kernel",
                      args={"rows": int(c.numel()), "L": int(L)}) as fence:
         out = fence(gen_parity_matvec(key, parity_scale(L), c, w,
-                                      x[:D].float()))
+                                      x[:D].float(), out_dtype=out_dtype))
     return out
 
 
@@ -116,10 +165,14 @@ def coded_shard_matmul_batch(tiles: torch.Tensor, x: torch.Tensor, *,
                              block_rows: int = 128, block_k: int = 128,
                              parity_mode: str = "materialized",
                              parity: Optional[Sequence[GeneratedParity]]
-                             = None) -> torch.Tensor:
+                             = None,
+                             out_dtype: torch.dtype = torch.float64
+                             ) -> torch.Tensor:
     """Every packed shard tile of a serving step against one operand, in
-    one launch: ``tiles`` (T, R, K) block-aligned encoded-row tiles, ``x``
-    (K, C) → (T, R, C).
+    one launch per 8 columns: ``tiles`` (T, R, K) block-aligned float32
+    encoded-row tiles, ``x`` (K, C) → (T, R, C) in ``out_dtype``.  The
+    products feed the step's decode, so by default they are accumulated in
+    float64 (float32 is the reference's numerics).
 
     The tile axis flattens into the row axis of the coded_matvec kernel
     (per-row results are independent of the bucketing, so the packing
@@ -142,10 +195,12 @@ def coded_shard_matmul_batch(tiles: torch.Tensor, x: torch.Tensor, *,
                      args={"tiles": T, "rows": T * R, "k": K,
                            "parity_mode": parity_mode}) as fence:
         flat = fence(_coded_matvec(tiles.reshape(T * R, K),
-                                   x.float().contiguous()))
+                                   x.float().contiguous(),
+                                   out_dtype=out_dtype))
     if gen:
         for spec in parity:
-            yp = gen_parity_products(spec.key, spec.ctrs, spec.w, x)
+            yp = gen_parity_products(spec.key, spec.ctrs, spec.w, x,
+                                     out_dtype=out_dtype)
             lanes = torch.from_numpy(
                 np.asarray(spec.lanes, dtype=np.int64)).to(flat.device)
             flat[lanes] = yp

@@ -1,4 +1,5 @@
-"""Plain-PyTorch versions of every kernel on the coded-serving path.
+"""Plain-PyTorch versions of every kernel of the port (coded serving, the
+static executor, the streaming verify).
 
 The CPU tests run these (a wrapper takes them only for CPU tensors) and
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.  They
@@ -12,10 +13,13 @@ arithmetic, so the rows are bit-identical to
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-__all__ = ["matmul_ref", "coded_matvec_ref", "threefry2x32_ref",
-           "counter_parity_rows_ref", "gen_parity_ref"]
+__all__ = ["matmul_ref", "coded_matvec_ref", "coded_matvec_batch_ref",
+           "mds_encode_ref", "threefry2x32_ref", "counter_parity_rows_ref",
+           "gen_parity_ref"]
 
 _M32 = 0xFFFFFFFF
 _TF_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -30,9 +34,35 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float()).to(a.dtype)
 
 
-def coded_matvec_ref(a_tilde: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """y = Ã @ x for x of shape (S,) or (S, B)."""
-    return torch.matmul(a_tilde.float(), x.float()).to(x.dtype)
+def _working_type(*ts: torch.Tensor) -> torch.dtype:
+    """float64 if any operand is float64, else float32."""
+    return torch.float64 if any(t.dtype == torch.float64 for t in ts) \
+        else torch.float32
+
+
+def coded_matvec_ref(a_tilde: torch.Tensor, x: torch.Tensor, *,
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """y = Ã @ x for x of shape (S,) or (S, B), accumulated in
+    ``out_dtype`` (default: the operands' working type) and returned in
+    ``out_dtype`` (default: x's dtype)."""
+    acc = out_dtype or _working_type(a_tilde, x)
+    return torch.matmul(a_tilde.to(acc), x.to(acc)).to(out_dtype or x.dtype)
+
+
+def coded_matvec_batch_ref(a_tilde: torch.Tensor,
+                           x: torch.Tensor) -> torch.Tensor:
+    """Per-task y_b = Ã_b @ x_b for Ã (B, L, S) and x (B, S) or (B, S, C):
+    a loop over the task axis."""
+    return torch.stack([coded_matvec_ref(a_tilde[b], x[b])
+                        for b in range(a_tilde.shape[0])])
+
+
+def mds_encode_ref(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Ã = G @ A accumulated in A's working type (float32, or float64 for
+    float64 A), in A's dtype.  ``g`` (L̃, L) or (B, L̃, L), ``a`` (L, S) or
+    (B, L, S)."""
+    acc = _working_type(a)
+    return torch.matmul(g.to(acc), a.to(acc)).to(a.dtype)
 
 
 def threefry2x32_ref(k0: int, k1: int, c0: torch.Tensor, c1: torch.Tensor):
@@ -78,16 +108,18 @@ def counter_parity_rows_ref(key, scale: float, ctrs: torch.Tensor,
 
 
 def gen_parity_ref(key, scale: float, ctrs: torch.Tensor, w: torch.Tensor,
-                   x: torch.Tensor) -> torch.Tensor:
-    """Generated-parity products ``R_gen[ctrs] @ (W @ x)`` (n, C) float32,
-    with R derived row-chunk by row-chunk (never all of it at once)."""
+                   x: torch.Tensor, *,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Generated-parity products ``R_gen[ctrs] @ (W @ x)`` (n, C) in
+    ``out_dtype``, which is also the accumulation type of both products;
+    R is derived row-chunk by row-chunk (never all of it at once)."""
     L = w.shape[0]
-    wx = torch.matmul(w.float(), x.float())
+    wx = torch.matmul(w.to(out_dtype), x.to(out_dtype))
     cols = torch.arange(L, device=w.device)
     n = ctrs.numel()
-    out = torch.empty((n, x.shape[1]), dtype=torch.float32, device=w.device)
+    out = torch.empty((n, x.shape[1]), dtype=out_dtype, device=w.device)
     step = max(1, _CHUNK // max(L, 1))
     for i in range(0, n, step):
         r = counter_parity_rows_ref(key, scale, ctrs[i:i + step], cols)
-        out[i:i + step] = r @ wx
+        out[i:i + step] = r.to(out_dtype) @ wx
     return out

@@ -161,10 +161,13 @@ class _BarrierExecutor:
     """
 
     def __init__(self, linears, barrier, *, backend: str,
-                 device_products: bool = False, entry=None, cache=None):
+                 device_products: bool = False,
+                 product_dtype: torch.dtype = torch.float64, entry=None,
+                 cache=None):
         self.linears = linears
         self.backend = backend
         self.device_products = bool(device_products)
+        self.product_dtype = product_dtype
         self.used_solve = False
         self.solve_backends: set = set()   # decode engines actually run
         current = cache is not None and cache.is_current(entry)
@@ -232,6 +235,7 @@ class _BarrierExecutor:
         stg, solve_flag = self.stage(keys)
         outs = stg.execute(
             items[0][1], device_products=self.device_products,
+            product_dtype=self.product_dtype,
             mutate=self._corruptor(stg, marks, eps) if marks else None)
         self.solve_backends.add(stg.solve_backend)
         self.used_solve |= solve_flag
@@ -409,8 +413,13 @@ class CodedServingBridge:
                ``coded_shard_matmul_batch`` kernel (torch backend).
                Off by default: decode-feeding products stay float64
                host-side so tokens match the uncoded pipeline bit-for-bit
-               — on-card serving flips this on and accepts float32
-               verification tolerances.
+               — on-card serving flips this on.
+    product_dtype: accumulation/output type of the device products
+               (``device_products``).  float64 (default): the float32
+               weights and activations multiply exactly and sum in
+               float64, so the decode amplifies no float32 rounding;
+               float32 is the reference's numerics, kept to measure what
+               the float64 products buy.
     backend:   "numpy" | "torch" for the coded encode/decode
                (``ServeReport.backend_effective`` records what ran).
     device:    torch device of the model and of the torch backend
@@ -485,7 +494,8 @@ class CodedServingBridge:
                  tracer: Optional[Tracer] = None,
                  plan_cache: bool = True,
                  faults: Optional[FaultConfig] = None,
-                 ls_tail: bool = False, device=None):
+                 ls_tail: bool = False, device=None,
+                 product_dtype: torch.dtype = torch.float64):
         if coding_scope not in CODING_SCOPES:
             raise ValueError(f"unknown coding_scope {coding_scope!r}; "
                              f"expected one of {CODING_SCOPES}")
@@ -521,6 +531,10 @@ class CodedServingBridge:
         self.steps_per_dispatch = int(steps_per_dispatch)
         self.execution = execution
         self.device_products = bool(device_products)
+        if product_dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"product_dtype must be torch.float32 or "
+                             f"torch.float64, got {product_dtype}")
+        self.product_dtype = product_dtype
         self.backend = bk.check_backend(backend)
         self.device = resolve_device(device)
         if parity_storage not in ("materialized", "virtual"):
@@ -944,6 +958,7 @@ class CodedServingBridge:
             ex = _BarrierExecutor(self._linears, sp.barrier,
                                   backend=self.backend,
                                   device_products=self.device_products,
+                                  product_dtype=self.product_dtype,
                                   entry=sp.entry, cache=self._plan_cache) \
                 if batched and self.coded else None
             # serial engine: share the same frozen prefixes across steps —

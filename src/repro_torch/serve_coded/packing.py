@@ -25,8 +25,10 @@ row tiles and a 128-aligned contraction width::
 
 and :func:`repro_torch.kernels.ops.coded_shard_matmul_batch` runs every
 tile in one launch of the coded_matvec kernel (virtual-parity lanes come
-from the generated-parity kernel).  The float32 device products are the
-offload path — host products stay float64 so greedy tokens remain
+from the generated-parity kernel).  The device products are the offload
+path: float32 tiles and activations, multiplied exactly and summed in
+float64 (``product_dtype``), so the float64 decode amplifies no float32
+rounding — host products stay float64 so greedy tokens remain
 bit-identical to the uncoded pipeline.
 
 Decode on the card.  With ``backend="torch"`` the substitution decode
@@ -160,9 +162,12 @@ class PackedShards:
                     p.linear.device_rows(n)[torch.from_numpy(r).to(dev)]
         return tiles.reshape(self.n_tiles, self.tile, Dp)
 
-    def products_device(self, X: np.ndarray) -> List[torch.Tensor]:
+    def products_device(self, X: np.ndarray, *,
+                        out_dtype: torch.dtype = torch.float64
+                        ) -> List[torch.Tensor]:
         """One-launch device execution of every packed product → per-
-        problem (L_t, B) float32 device slices (the offload path)."""
+        problem (L_t, B) device slices in ``out_dtype`` (the offload
+        path; float64 by default, since the products feed the decode)."""
         from ..kernels import ops
         if self._tiles is None:
             self._tiles = self.device_tiles()
@@ -191,7 +196,7 @@ class PackedShards:
         Y = ops.coded_shard_matmul_batch(
             self._tiles, Xp,
             parity_mode="generated" if self._gen_specs else "materialized",
-            parity=self._gen_specs or None)
+            parity=self._gen_specs or None, out_dtype=out_dtype)
         flat = Y.reshape(-1, X.shape[0])
         return [flat[self.offsets[i]:self.offsets[i + 1]]
                 for i in range(len(self.problems))]
@@ -421,6 +426,7 @@ class PackedStage:
 
     def execute(self, X: np.ndarray, *,
                 device_products: bool = False,
+                product_dtype: torch.dtype = torch.float64,
                 mutate=None) -> Dict[str, np.ndarray]:
         """Decode every problem of the stage for one activation batch →
         ``{key: (B, L) exact product}``.
@@ -437,7 +443,7 @@ class PackedStage:
             # the kernel launch inside products_device times itself
             # (kernels.ops device_span) — no outer kernel span here,
             # stage categories must not double count
-            y = self.pack.products_device(X)
+            y = self.pack.products_device(X, out_dtype=product_dtype)
             Y = torch.cat(y) if len(y) > 1 else y[0]
         else:
             ctx = tr.span("stage:products", cat="kernel",
@@ -459,6 +465,7 @@ class PackedStage:
             if tr is not None else contextlib.nullcontext()
         with ctx:
             if self.backend == "torch":
+                # no copy when the device products are already float64
                 dev = self.problems[0].linear.device
                 Y = bk.as_f64(Y, dev)
             B = Y.shape[-1]

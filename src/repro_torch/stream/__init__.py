@@ -1,15 +1,17 @@
-"""repro_torch.stream — the stream planner's serving-side machinery.
+"""repro_torch.stream — event-driven streaming over the paper's planner.
 
 The event model, share ledger, admission policies, online planner, step
 barrier and metrics are byte-identical copies of ``repro.stream``; the
+config differs only in its backends (``"numpy"`` | ``"torch"``); the
 batched numerics in :mod:`.backend` carry a ``"torch"`` engine in place of
-the jax one.  The streaming executor (``repro.stream.engine``) is not
-ported yet.
+the jax one; :class:`StreamingExecutor` (:mod:`.engine`) is the
+reference's event loop with its verification numerics on the card.
 """
 from .backend import (ExponentialBlock, completion_times, decode_batch,
                       delivered_by, sample_delays)
 from .barrier import BarrierTask, StepBarrier, churn_finish_update
 from .config import BackendConfig, StreamConfig
+from .engine import StreamingExecutor, poisson_sources
 from .events import (ARRIVAL, CHURN, COMPLETION, REPLAN, Event, EventLoop,
                      PoissonProcess, TraceProcess, WorkerEvent)
 from .metrics import StreamMetrics, TaskRecord
@@ -19,6 +21,7 @@ from .queueing import (AdmissionConfig, AdmissionPolicy, EDFAdmission,
 from .replan import OnlinePlanner, ReplanMode, ReplanPolicy, scaled_row_loads
 
 __all__ = [
+    "StreamingExecutor", "poisson_sources",
     "StreamConfig", "BackendConfig", "ReplanMode",
     "EventLoop", "Event", "PoissonProcess", "TraceProcess", "WorkerEvent",
     "ARRIVAL", "COMPLETION", "CHURN", "REPLAN",

@@ -67,6 +67,7 @@ __all__ = [
 ]
 
 _EPS = 1e-12
+_LU_ONE_BY_ONE = 512      # StackedLU: factor systems this large singly
 BACKENDS = ("numpy", "torch")
 
 
@@ -306,7 +307,12 @@ class StackedLU:
     solve when scipy is unavailable.
 
     ``backend="torch"`` factors once with ``torch.linalg.lu_factor`` in
-    float64 on ``device`` and replays ``lu_solve`` per right-hand side.
+    float64 on ``device`` and replays ``lu_solve`` per right-hand side;
+    it returns a tensor on ``device`` for a tensor ``b``, else a host
+    array.  Systems of order ``_LU_ONE_BY_ONE`` or more are factored one
+    at a time: the batched routines are built for small matrices, and the
+    card ran the executor's 1e4-order minors about twice as fast singly.
+    A column-major device ``A`` is factored in place.
     """
 
     __slots__ = ("A", "_fac", "_checked", "_tfac")
@@ -317,10 +323,10 @@ class StackedLU:
         self._checked = False
         self._tfac = None
 
-    def solve(self, b: np.ndarray, *, backend: str = "numpy",
-              device=None) -> np.ndarray:
+    def solve(self, b, *, backend: str = "numpy", device=None):
         if backend == "torch":
-            return self._solve_torch(b, resolve_device(device))
+            out = self._solve_torch(b, resolve_device(device))
+            return out if isinstance(b, torch.Tensor) else out.cpu().numpy()
         if _lu_factor is None:
             return solve_stacked(self.A, b)
         if self._fac is None:
@@ -342,15 +348,22 @@ class StackedLU:
             self._checked = True
         return out
 
-    def _solve_torch(self, b, device: torch.device) -> np.ndarray:
+    def _solve_torch(self, b, device: torch.device) -> torch.Tensor:
         if self._tfac is None:
-            self._tfac = lu_factor_torch(as_f64(self.A, device))
-        out = lu_solve_torch(self._tfac, as_f64(b, device))
+            A = as_f64(self.A, device)
+            self._tfac = [lu_factor_torch(a) for a in A] \
+                if A.shape[-1] >= _LU_ONE_BY_ONE else lu_factor_torch(A)
+        b = as_f64(b, device)
+        if isinstance(self._tfac, list):
+            out = torch.stack([lu_solve_torch(f, b[i])
+                               for i, f in enumerate(self._tfac)])
+        else:
+            out = lu_solve_torch(self._tfac, b)
         if not self._checked:
             if not bool(torch.isfinite(out).all()):
                 raise np.linalg.LinAlgError("Singular matrix")
             self._checked = True
-        return out.cpu().numpy()
+        return out
 
 
 def lu_factor_torch(A: torch.Tensor):
@@ -456,45 +469,95 @@ class SystematicRows:
         return self.take(rows)
 
 
-def _identity_prefix(G: np.ndarray) -> bool:
-    """True iff the generator's (shared) top L rows are exactly I_L."""
+def _identity_prefix(G) -> bool:
+    """True iff the generator's (shared) top L rows are exactly I_L (a host
+    array or a device tensor)."""
     L = G.shape[-1]
     if G.shape[-2] < L:
         return False
     top = G[..., :L, :]
-    eye = np.eye(L, dtype=G.dtype)
-    return bool((top == eye).all())
+    if isinstance(G, torch.Tensor):
+        return bool((top == torch.eye(L, dtype=G.dtype,
+                                      device=G.device)).all())
+    return bool((top == np.eye(L, dtype=G.dtype)).all())
+
+
+def _idx_t(a, device) -> torch.Tensor:
+    """Host index array → int64 tensor on ``device``."""
+    return torch.from_numpy(np.asarray(a, dtype=np.int64)).to(device)
 
 
 def _gather_generator_rows(G, glist: bool, idx: np.ndarray,
-                           rows: np.ndarray) -> np.ndarray:
-    """Stack G[rows[i]] for the selected task indices → (len(idx), R, L)."""
+                           rows: np.ndarray, device=None):
+    """Stack G[rows[i]] for the selected task indices → (len(idx), R, L),
+    on ``device`` when the plan is built there (G then holds float64
+    tensors, except a :class:`SystematicRows`, which synthesises its rows
+    on the host)."""
+    if device is not None and not isinstance(G, SystematicRows):
+        r = _idx_t(rows, device)
+        if glist:
+            return torch.stack([G[i][r[j]] for j, i in enumerate(idx)])
+        if G.dim() == 2:
+            return G[r]
+        return G[_idx_t(idx, device)[:, None], r]
     if glist:
-        return np.stack([np.asarray(G[i], dtype=np.float64)[rows[j]]
-                         for j, i in enumerate(idx)])
-    if G.ndim == 2:
-        return G[rows]
-    return G[idx[:, None], rows]
+        out = np.stack([G[i][rows[j]] for j, i in enumerate(idx)])
+    elif G.ndim == 2:
+        out = G[rows]
+    else:
+        out = G[idx[:, None], rows]
+    return out if device is None else as_f64(out, device)
+
+
+def _take_cols(Gp, cols: np.ndarray):
+    """Per-task column gather ``Gp[b][:, cols[b]]`` of (g, R, L) blocks."""
+    if isinstance(Gp, torch.Tensor):
+        return torch.take_along_dim(Gp, _idx_t(cols, Gp.device)[:, None, :],
+                                    dim=2)
+    return np.take_along_axis(Gp, cols[:, None, :], axis=2)
 
 
 class _MixedGroup:
     """One mixed-row substitution group of a :class:`DecodePlan`: every
-    task that received exactly ``s`` systematic rows (0 < s < L)."""
+    task that received exactly ``s`` systematic rows (0 < s < L).
 
-    __slots__ = ("grp", "sys_rows", "unk", "lu", "Gk", "sys_pos", "par_pos")
+    Its generator blocks are gathered at the first solve and kept for the
+    next; :meth:`release` drops them, so a one-shot decode holds one
+    group's blocks at a time."""
 
-    def __init__(self, grp, sys_rows, unk, A, Gk, sys_pos, par_pos):
+    __slots__ = ("grp", "sys_rows", "unk", "sys_pos", "par_pos", "_gather",
+                 "_lu", "_Gk")
+
+    def __init__(self, grp, sys_rows, unk, sys_pos, par_pos, gather):
         self.grp = grp                # (g,) task indices in the batch
         self.sys_rows = sys_rows      # (g, s) pinned coordinate ids
         self.unk = unk                # (g, L-s) coordinates to solve for
-        self.lu = StackedLU(A)        # (g, L-s, L-s) parity sub-blocks
-        self.Gk = Gk                  # (g, L-s, s) known-coordinate columns
         self.sys_pos = sys_pos        # (g, s) receive positions of sys rows
         self.par_pos = par_pos        # (g, L-s) receive positions of parity
+        self._gather = gather         # () -> (A, Gk)
+        self._lu = self._Gk = None
+
+    def _blocks(self):
+        if self._lu is None:
+            A, self._Gk = self._gather()
+            self._lu = StackedLU(A)   # (g, L-s, L-s) parity sub-blocks
+        return self._lu, self._Gk
+
+    @property
+    def lu(self) -> "StackedLU":
+        return self._blocks()[0]
+
+    @property
+    def Gk(self):
+        """(g, L-s, s) known-coordinate columns."""
+        return self._blocks()[1]
 
     @property
     def A(self) -> np.ndarray:
         return self.lu.A
+
+    def release(self) -> None:
+        self._lu = self._Gk = None
 
 
 class DecodePlan:
@@ -502,20 +565,24 @@ class DecodePlan:
 
     Everything :func:`decode_batch` derives from ``(G, rows)`` alone — the
     systematic/mixed/full partition of the batch, the per-``s`` substitution
-    groups, the gathered generator sub-blocks — is computed once here, so a
-    caller that decodes many right-hand sides against the *same* received
-    rows (the serving bridge's step barrier: one delivery prefix, one
-    decode problem per coded matmul, re-applied for every token of a
-    multi-token dispatch) pays the planning overhead once.  ``apply(y)``
-    runs the solves; ``decode_batch(G, rows, y)`` is literally
-    ``plan_decode(G, rows).apply(y)``, so the two can never drift.
+    groups, the gathered generator sub-blocks (a group's at its first
+    solve) — is computed once here, so a caller that decodes many
+    right-hand sides against the *same* received rows (the serving
+    bridge's step barrier: one delivery prefix, one decode problem per
+    coded matmul, re-applied for every token of a multi-token dispatch)
+    pays the planning overhead once.  ``apply(y)`` runs the solves;
+    ``decode_batch(G, rows, y)`` is literally
+    ``plan_decode(G, rows).apply(y, release=True)`` on both engines, so the
+    two can never drift.  A plan built with a ``device`` holds its
+    generator blocks there (float64 tensors) and applies on that device
+    only.
     """
 
     __slots__ = ("B", "L", "fast_idx", "fast_rows", "full_idx", "full_G",
-                 "full_lu", "mixed_groups")
+                 "full_lu", "mixed_groups", "device")
 
     def __init__(self, B: int, L: int, fast_idx, fast_rows, full_idx,
-                 full_G, mixed_groups):
+                 full_G, mixed_groups, device=None):
         self.B = B
         self.L = L
         self.fast_idx = fast_idx          # (f,) tasks decoded by scatter
@@ -523,42 +590,77 @@ class DecodePlan:
         self.full_idx = full_idx          # (n,) tasks needing the full solve
         self.full_G = full_G              # (n, L, L) gathered generators
         self.full_lu = StackedLU(full_G)  # factor cached across applies
-        # list of (grp_idx, sys_rows, unk, A, Gk) per distinct s count
-        self.mixed_groups = mixed_groups
+        self.mixed_groups = mixed_groups  # one _MixedGroup per distinct s
+        self.device = device              # None: host arrays
 
     def apply(self, y: np.ndarray, *, backend: str = "numpy",
-              device=None) -> np.ndarray:
+              device=None, release: bool = False) -> np.ndarray:
         """Solve the planned systems for one stacked right-hand side
-        ``y`` (B, L) or (B, L, C).  ``backend="torch"`` solves in float64
-        on ``device`` (default ``cuda``)."""
+        ``y`` (B, L) or (B, L, C).  ``backend="torch"`` scatters,
+        substitutes and solves in float64 on the plan's device, else on
+        ``device`` (default ``cuda``); the result comes back to the host
+        once.  ``release`` drops each substitution group's blocks once it
+        is solved (a plan applied once)."""
         check_backend(backend)
         tr = current_tracer()
         t0 = tr.now() if tr is not None else 0.0
-        y = np.asarray(y, dtype=np.float64)
+        if backend == "torch":
+            dev = self.device or resolve_device(device)
+
+            def arr(a):
+                return as_f64(a, dev)
+
+            def idx(a):
+                return _idx_t(a, dev)
+
+            take = torch.take_along_dim
+        elif self.device is not None:
+            raise ValueError("a plan built on a device applies with "
+                             "backend='torch'")
+        else:
+            dev = None
+
+            def arr(a):
+                return np.asarray(a, dtype=np.float64)
+
+            def idx(a):
+                return a
+
+            take = np.take_along_axis
+        y = arr(y)
         squeeze = y.ndim == 2
         if squeeze:
             y = y[..., None]
-        out = np.empty((self.B, self.L, y.shape[-1]))
+        shape = (self.B, self.L, y.shape[-1])
+        out = np.empty(shape) if dev is None else \
+            torch.empty(shape, dtype=torch.float64, device=dev)
 
-        def solve(lu: StackedLU, b: np.ndarray) -> np.ndarray:
+        def solve(lu: StackedLU, b):
             # both engines factor once per frozen plan and replay the
             # triangular solves (numpy: getrf/getrs, bit-identical to gesv)
-            return lu.solve(b, backend=backend, device=device)
+            return lu.solve(b, backend=backend, device=dev)
 
         if self.fast_idx.size:
             # permutation decode: out[b, rows[b, i]] = y[b, i]
-            out[self.fast_idx[:, None], self.fast_rows] = y[self.fast_idx]
+            fi = idx(self.fast_idx)
+            out[fi[:, None], idx(self.fast_rows)] = y[fi]
         if self.full_idx.size:
-            out[self.full_idx] = solve(self.full_lu, y[self.full_idx])
+            fi = idx(self.full_idx)
+            out[fi] = solve(self.full_lu, y[fi])
         for mg in self.mixed_groups:
             # receive-order partitions were frozen at plan time as position
             # index arrays; partition y the same row-major way
-            yg = y[mg.grp]
-            sys_y = np.take_along_axis(yg, mg.sys_pos[:, :, None], axis=1)
-            par_y = np.take_along_axis(yg, mg.par_pos[:, :, None], axis=1)
-            sol = solve(mg.lu, par_y - mg.Gk @ sys_y)
-            out[mg.grp[:, None], mg.sys_rows] = sys_y        # exact pins
-            out[mg.grp[:, None], mg.unk] = sol
+            gi = idx(mg.grp)
+            yg = y[gi]
+            sys_y = take(yg, idx(mg.sys_pos)[:, :, None], 1)
+            par_y = take(yg, idx(mg.par_pos)[:, :, None], 1)
+            sol = solve(mg.lu, par_y - arr(mg.Gk) @ sys_y)
+            out[gi[:, None], idx(mg.sys_rows)] = sys_y        # exact pins
+            out[gi[:, None], idx(mg.unk)] = sol
+            if release:
+                mg.release()
+        if dev is not None:
+            out = out.cpu().numpy()
         if tr is not None:
             tr.add_span("decode_apply", t0, tr.now(), cat="decode",
                         track="wall",
@@ -571,23 +673,34 @@ class DecodePlan:
 
 
 def plan_decode(G, rows: np.ndarray, *, systematic: str = "auto",
-                identity_prefix: Optional[bool] = None) -> DecodePlan:
+                identity_prefix: Optional[bool] = None,
+                device=None) -> DecodePlan:
     """Build the :class:`DecodePlan` for stacked received rows.
 
     ``identity_prefix`` short-circuits the O(L²) top-rows-are-identity
     check when the caller constructed G as a systematic [I; R] generator
     (``CodedLinear`` always does) — pass ``True``/``False`` to assert the
     structure, ``None`` (default) to detect it.
+
+    ``device`` builds the plan there: G is uploaded once as float64 and
+    every generator gather, minor and factor stays on the device, which
+    then only takes ``apply(..., backend="torch")``.  The partition of the
+    row ids is host work either way.
     """
     if systematic not in ("auto", "prefix", "never"):
         raise ValueError(f"systematic must be 'auto', 'prefix' or 'never', "
                          f"got {systematic!r}")
     tr = current_tracer()
     t0 = tr.now() if tr is not None else 0.0
+    dev = None if device is None else resolve_device(device)
     rows = np.asarray(rows)
     glist = isinstance(G, (list, tuple))
-    if not glist and not isinstance(G, SystematicRows):
-        G = np.asarray(G, dtype=np.float64)
+    if glist:
+        G = [as_f64(g, dev) for g in G] if dev is not None \
+            else [np.asarray(g, dtype=np.float64) for g in G]
+    elif not isinstance(G, SystematicRows):
+        G = as_f64(G, dev) if dev is not None \
+            else np.asarray(G, dtype=np.float64)
     B, L = rows.shape
 
     sys_ok = False
@@ -597,8 +710,7 @@ def plan_decode(G, rows: np.ndarray, *, systematic: str = "auto",
         elif isinstance(G, SystematicRows):
             sys_ok = True            # systematic by construction
         else:
-            sys_ok = (all(_identity_prefix(np.asarray(g)) for g in G)
-                      if glist else _identity_prefix(G))
+            sys_ok = all(_identity_prefix(g) for g in (G if glist else [G]))
     sys_counts = (rows < L).sum(axis=1) if sys_ok else np.zeros(B, dtype=int)
     fast = sys_counts == L
     fast_idx = np.nonzero(fast)[0]
@@ -607,8 +719,17 @@ def plan_decode(G, rows: np.ndarray, *, systematic: str = "auto",
         full_idx = np.nonzero(sys_counts == 0)[0]
     else:
         full_idx = np.nonzero(~fast)[0]
-    full_G = (np.empty((0, L, L)) if not full_idx.size else
-              _gather_generator_rows(G, glist, full_idx, rows[full_idx]))
+    if not full_idx.size:
+        full_G = np.empty((0, L, L))
+    elif dev is None:
+        full_G = _gather_generator_rows(G, glist, full_idx, rows[full_idx])
+    else:
+        # column-major minors: the first solve factors them in place, so
+        # an L = 1e4 minor costs no second copy on the card
+        full_G = torch.empty((full_idx.size, L, L), dtype=torch.float64,
+                             device=dev).mT
+        full_G.copy_(_gather_generator_rows(G, glist, full_idx,
+                                            rows[full_idx], dev))
 
     mixed_groups = []
     if systematic == "auto" and sys_ok:
@@ -627,18 +748,20 @@ def plan_decode(G, rows: np.ndarray, *, systematic: str = "auto",
             known = np.zeros((g, L), dtype=bool)
             known[np.arange(g)[:, None], sys_rows] = True
             unk = np.nonzero(~known)[1].reshape(g, L - s)
-            Gp = _gather_generator_rows(G, glist, grp, par_rows)
-            Gk = np.take_along_axis(Gp, sys_rows[:, None, :], axis=2)
-            A = np.take_along_axis(Gp, unk[:, None, :], axis=2)
+
+            def gather(grp=grp, par_rows=par_rows, sys_rows=sys_rows,
+                       unk=unk):
+                Gp = _gather_generator_rows(G, glist, grp, par_rows, dev)
+                return _take_cols(Gp, unk), _take_cols(Gp, sys_rows)
             mixed_groups.append(
-                _MixedGroup(grp, sys_rows, unk, A, Gk, sys_pos, par_pos))
+                _MixedGroup(grp, sys_rows, unk, sys_pos, par_pos, gather))
     if tr is not None:
         tr.add_span("plan_decode", t0, tr.now(), cat="plan", track="wall",
                     args={"tasks": B, "L": L, "scatter": int(fast_idx.size),
                           "solved": int(full_idx.size),
                           "mixed_groups": len(mixed_groups)})
     return DecodePlan(B, L, fast_idx, rows[fast_idx], full_idx, full_G,
-                      mixed_groups)
+                      mixed_groups, dev)
 
 
 def decode_batch(G: np.ndarray, rows: np.ndarray, y: np.ndarray,
@@ -675,14 +798,18 @@ def decode_batch(G: np.ndarray, rows: np.ndarray, y: np.ndarray,
     caller built G systematically (see :func:`plan_decode`).
 
     Solves run as cached LAPACK getrf/getrs on the numpy backend and
-    float64 ``torch.linalg`` LU on the torch backend.  This function is the
-    composition ``plan_decode(G, rows).apply(y)``; callers re-decoding
-    against fixed received rows should hold the plan and call ``apply``.
+    float64 ``torch.linalg`` LU on the torch backend, whose plan gathers
+    its generator blocks on ``device`` (default ``cuda``).  This function
+    is the composition ``plan_decode(G, rows).apply(y, release=True)``
+    (one substitution group's blocks on hand at a time); callers
+    re-decoding against fixed received rows should hold the plan and call
+    ``apply``.
     """
     check_backend(backend)
+    dev = resolve_device(device) if backend == "torch" else None
     return plan_decode(G, rows, systematic=systematic,
-                       identity_prefix=identity_prefix).apply(
-                           y, backend=backend, device=device)
+                       identity_prefix=identity_prefix, device=dev).apply(
+                           y, backend=backend, device=dev, release=True)
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,7 @@ __all__ = ["BackendConfig", "StreamConfig"]
 
 _PLAN_POLICIES = ("dedicated", "fractional", "uncoded")
 _NUMERICS = ("none", "verify")
-_BACKENDS = ("numpy", "jax", "pallas")
+_BACKENDS = ("numpy", "torch")
 
 
 @dataclasses.dataclass(frozen=True)

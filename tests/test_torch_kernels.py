@@ -70,6 +70,74 @@ def test_coded_matvec_matches_reference(L, S, B):
         rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("L,Lt,S", [(100, 250, 333), (128, 256, 128),
+                                    (60, 60, 70)])
+def test_mds_encode_matches_reference(L, Lt, S):
+    """The reference's ragged sweep (``tests/test_kernels.py``): float32
+    against its interpret-mode kernel at its 2e-3, float64 against
+    ``G @ A`` at 1e-12; the systematic prefix is A itself, bit for bit."""
+    rng = np.random.default_rng(L + Lt + S)
+    G = rng.normal(0, 1 / np.sqrt(L), size=(Lt, L))
+    G[:L] = np.eye(L)
+    A = rng.normal(size=(L, S))
+    G32, A32 = G.astype(np.float32), A.astype(np.float32)
+    ours = tops.mds_encode(_t(G32), _t(A32)).numpy()
+    theirs = np.asarray(jops.mds_encode(jnp.asarray(G32), jnp.asarray(A32),
+                                        interpret=True))
+    assert ours.shape == (Lt, S) and ours.dtype == np.float32
+    np.testing.assert_allclose(ours, theirs, rtol=2e-3, atol=2e-3)
+    np.testing.assert_array_equal(ours[:L], A32)
+    ours64 = tops.mds_encode(_t(G), _t(A)).numpy()
+    assert ours64.dtype == np.float64
+    np.testing.assert_allclose(ours64, G @ A, rtol=1e-12, atol=1e-12)
+    np.testing.assert_array_equal(ours64[:L], A)
+    full = tops.mds_encode(_t(G), _t(A), systematic=False).numpy()
+    np.testing.assert_allclose(full, G @ A, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_mds_encode_batch_shared_and_per_task_generators(shared):
+    rng = np.random.default_rng(21)
+    B, L, Lt, S = 3, 40, 90, 17
+    G = rng.normal(0, 1 / np.sqrt(L), size=(Lt, L) if shared
+                   else (B, Lt, L))
+    G[..., :L, :] = np.eye(L)
+    A = rng.normal(size=(B, L, S))
+    G32, A32 = G.astype(np.float32), A.astype(np.float32)
+    ours = tops.mds_encode_batch(_t(G32), _t(A32)).numpy()
+    theirs = np.asarray(jops.mds_encode_batch(
+        jnp.asarray(G32), jnp.asarray(A32), interpret=True))
+    assert ours.shape == (B, Lt, S)
+    np.testing.assert_allclose(ours, theirs, rtol=2e-3, atol=2e-3)
+    np.testing.assert_array_equal(ours[:, :L], A32)
+    ours64 = tops.mds_encode_batch(_t(G), _t(A)).numpy()
+    np.testing.assert_allclose(ours64, np.matmul(G, A), rtol=1e-12,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("C", [None, 3])
+def test_coded_matvec_batch_matches_reference(C):
+    """(B, L, S) × (B, S) or (B, S, C): float32 against the reference's
+    vmapped interpret-mode kernel, float64 against numpy at 1e-12."""
+    rng = np.random.default_rng(22 + (C or 0))
+    B, L, S = 3, 70, 33
+    A = rng.normal(size=(B, L, S))
+    x = rng.normal(size=(B, S) if C is None else (B, S, C))
+    ours = tops.coded_matvec_batch(_t(A.astype(np.float32)),
+                                   _t(x.astype(np.float32))).numpy()
+    theirs = np.asarray(jops.coded_matvec_batch(
+        jnp.asarray(A, jnp.float32), jnp.asarray(x, jnp.float32),
+        interpret=True))
+    assert ours.shape == theirs.shape == ((B, L) if C is None else (B, L, C))
+    np.testing.assert_allclose(ours, theirs, rtol=1e-4, atol=1e-4)
+    want = np.einsum("bls,bs->bl", A, x) if C is None \
+        else np.einsum("bls,bsc->blc", A, x)
+    for got in (tops.coded_matvec_batch(_t(A), _t(x)),
+                tref.coded_matvec_batch_ref(_t(A), _t(x))):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-12,
+                                   atol=1e-12)
+
+
 def test_coded_shard_matmul_batch_matches_reference():
     rng = np.random.default_rng(3)
     tiles = rng.normal(size=(3, 128, 128)).astype(np.float32)
@@ -180,10 +248,47 @@ def test_generated_lanes_in_shard_batch():
                                atol=1e-4)
 
 
+def test_double_output_products_are_float64_exact():
+    """The head repair: float32 tiles, weights and activations multiply
+    exactly in float64 and sum in float64 — both the packed-tile product
+    and the generated-parity lanes agree with a float64 numpy product of
+    the same float32 values at 1e-12 (float32 sums miss it by ~1e-6)."""
+    rng = np.random.default_rng(23)
+    L, D = 64, 128
+    w = rng.normal(size=(L, D)).astype(np.float32)
+    tiles = rng.normal(size=(2, 128, D)).astype(np.float32)
+    lanes = np.array([3, 70, 200])
+    tiles.reshape(-1, D)[lanes] = 0.0
+    x = rng.normal(size=(D, 4)).astype(np.float32)
+    ctrs = jmds.parity_counters(np.array([0, 5, 9]), 0)
+    spec = tops.GeneratedParity(lanes=lanes, ctrs=ctrs, key=(1, 2), w=_t(w))
+    out = tops.coded_shard_matmul_batch(_t(tiles), _t(x),
+                                        parity_mode="generated",
+                                        parity=[spec])
+    assert out.dtype == torch.float64
+    out = out.numpy().reshape(-1, 4)
+    x64 = x.astype(np.float64)
+    want = tiles.reshape(-1, D).astype(np.float64) @ x64
+    R = jmds.counter_parity_rows((1, 2), ctrs, L)          # float32 values
+    want[lanes] = R.astype(np.float64) @ (w.astype(np.float64) @ x64)
+    np.testing.assert_allclose(out, want, rtol=1e-12, atol=1e-12)
+    f32 = tops.coded_shard_matmul_batch(_t(tiles), _t(x),
+                                        parity_mode="generated",
+                                        parity=[spec],
+                                        out_dtype=torch.float32)
+    assert f32.dtype == torch.float32
+    np.testing.assert_allclose(f32.numpy().reshape(-1, 4), want, rtol=1e-4,
+                               atol=1e-4)
+
+
 def test_launch_counts_stay_zero_on_cpu():
     """The plain versions are not kernel launches."""
     from repro_torch import kernels
     kernels.reset_launch_counts()
     tops.matmul(torch.ones(4, 4), torch.ones(4, 4))
     tops.counter_parity_rows((1, 2), 8, np.arange(3), device="cpu")
+    tops.mds_encode_batch(torch.ones(5, 3, dtype=torch.float64),
+                          torch.ones(2, 3, 4, dtype=torch.float64))
+    tops.coded_matvec_batch(torch.ones(2, 3, 4), torch.ones(2, 4))
+    assert "mds_encode" in kernels.launch_counts()
     assert set(kernels.launch_counts().values()) == {0}

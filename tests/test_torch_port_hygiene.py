@@ -17,7 +17,7 @@ COPIED = sorted(
        "serve_coded/requests.py", "serve_coded/plan_cache.py",
        "models/config.py"]
     + [f"stream/{m}.py" for m in ("events", "metrics", "queueing",
-                                   "barrier", "replan", "config")]
+                                   "barrier", "replan")]
     + [f"obs/{m}.py" for m in ("tracer", "export", "validate")])
 CONFIGS = sorted(p.name for p in (REF / "configs").glob("*.py"))
 
@@ -29,6 +29,16 @@ def test_copied_module_list_is_complete():
 @pytest.mark.parametrize("rel", COPIED)
 def test_copied_module_is_byte_identical(rel):
     assert (PORT / rel).read_bytes() == (REF / rel).read_bytes()
+
+
+def test_stream_config_differs_only_by_the_backends():
+    """The port's stream config is the reference's with the backends the
+    port has: ``"torch"`` in place of ``"jax"`` / ``"pallas"``."""
+    ref = (REF / "stream" / "config.py").read_text()
+    old = '_BACKENDS = ("numpy", "jax", "pallas")\n'
+    assert ref.count(old) == 1
+    assert (PORT / "stream" / "config.py").read_text() == ref.replace(
+        old, '_BACKENDS = ("numpy", "torch")\n')
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -64,8 +74,12 @@ def test_port_imports_neither_jax_nor_the_reference(path):
 
 
 def test_entry_points_default_to_cuda():
+    from repro_torch.core import (large_scale_scenario, plan_from_assignment,
+                                  simple_greedy)
     from repro_torch.launch.serve import build_model
+    from repro_torch.runtime import CodedExecutor
     from repro_torch.serve_coded import CodedServingBridge
+    from repro_torch.stream import StreamingExecutor
     if torch.cuda.is_available():
         _, params = build_model("llama3.2-1b", smoke=True, seed=0)
         assert params["final_norm"].is_cuda
@@ -74,5 +88,11 @@ def test_entry_points_default_to_cuda():
         build_model("llama3.2-1b", smoke=True, seed=0)
     with pytest.raises(RuntimeError, match="cuda"):
         CodedServingBridge()
+    sc = large_scale_scenario(0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        CodedExecutor(sc, plan_from_assignment(sc, simple_greedy(sc)),
+                      backend="torch")
+    with pytest.raises(RuntimeError, match="cuda"):
+        StreamingExecutor(sc)
     _, params = build_model("llama3.2-1b", smoke=True, seed=0, device="cpu")
     assert params["final_norm"].device.type == "cpu"

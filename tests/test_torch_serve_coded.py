@@ -158,6 +158,25 @@ def test_torch_backend_tokens_equal_and_decode_ok(shared_params, storage):
     assert {s["decode_backend"] for s in rep.steps} == {"torch"}
 
 
+@pytest.mark.parametrize("storage", ["materialized", "virtual"])
+def test_float64_products_keep_tokens_and_shrink_error(shared_params,
+                                                       storage):
+    """The head repair at smoke size: float64 device products (the
+    default) serve the same greedy tokens as the reference's float32 ones,
+    both decode_ok, and the float64 decode error is no larger."""
+    reps = {}
+    for dt in (torch.float32, torch.float64):
+        b = _port_bridge(shared_params, parity_storage=storage,
+                         backend="torch", device_products=True,
+                         product_dtype=dt)
+        reps[dt] = b.serve(_requests(synthetic_requests, 512))
+    f32, f64 = reps[torch.float32], reps[torch.float64]
+    assert f64.tokens == f32.tokens
+    assert f32.decode_ok and f64.decode_ok
+    assert f64.solve_steps == f32.solve_steps > 0
+    assert f64.max_err <= f32.max_err
+
+
 def test_port_virtual_equals_materialized_and_coded_equals_uncoded(
         shared_params):
     reps = {}
@@ -252,6 +271,31 @@ def test_device_path_never_builds_host_buffer():
     out = stg.execute(X, device_products=True)
     assert stg.pack._W_packed is None
     np.testing.assert_allclose(out["p0"], X @ lins[0].W.T, atol=1e-3)
+
+
+@pytest.mark.parametrize("storage", ["materialized", "virtual"])
+def test_device_products_float64_exact_on_packed_problem(storage):
+    """The head repair on a smoke-size packed problem: the device products
+    (float32 encoded rows and activations) come out in float64 and agree
+    with a float64 numpy product of the same float32 values at 1e-12."""
+    lins = _linears(CodedLinear, storage, 2, backend="torch", device="cpu")
+    stg = _stage(lins, backend="torch")
+    X = np.random.default_rng(15).normal(size=(3, D))
+    ys = stg.pack.products_device(X)
+    x32 = X.astype(np.float32).astype(np.float64).T
+    for p, y in zip(stg.problems, ys):
+        assert y.dtype == torch.float64
+        lin, r = p.linear, np.asarray(p.rows)
+        if storage == "materialized":         # the float32 device mirror
+            enc = lin.gather_encoded(r).astype(np.float32)
+            want = enc.astype(np.float64) @ x32
+        else:                 # systematic rows, then R @ (W @ x) lanes
+            W32 = lin.W.astype(np.float32).astype(np.float64)
+            sys = r < L
+            want = np.empty((r.size, 3))
+            want[sys] = W32[r[sys]] @ x32
+            want[~sys] = lin.parity_rows(r[~sys] - L) @ (W32 @ x32)
+        np.testing.assert_allclose(y.numpy(), want, rtol=1e-12, atol=1e-12)
 
 
 def test_systematic_rows_take_columns():
