@@ -13,10 +13,12 @@ exits non-zero):
      gives it -- the coded-serving shapes of llama3.2-1b (L = 128 512 head
      rows, D = 2048; the decode-feeding products in their float64-output
      form, beside the float32 one) and the paper's executor / streaming
-     verify shapes (L = 1e4 rows per master, float64) -- with its time
-     (CUDA events, median), the plain version's time, a one-call PyTorch
-     yardstick where one exists, and the least time the card could take
-     (bytes over HBM rate, or operations over the peak of their type);
+     verify shapes (L = 1e4 rows per master, float64), and the RWKV-6 WKV
+     recurrence at rwkv6-7b's serving prefill, decode and long-prefill
+     shapes (and against the sequential oracle at strong decays) -- with
+     its time (CUDA events, median), the plain version's time, a one-call
+     PyTorch yardstick where one exists, and the least time the card could
+     take (bytes over HBM rate, or operations over the peak of their type);
   d. uncoded serving of llama3.2-1b at its published widths (bf16):
      prefill and decode tokens/s;
   e. coded serving of llama3.2-1b at its published widths: head scope,
@@ -38,9 +40,20 @@ exits non-zero):
   h. the streaming engine on the same scenario, 200 tasks with a degrade
      and a leave, ``numerics="verify"`` on ``"torch"``: raises unless every
      task decodes and the delay metrics equal its ``numerics="none"`` twin;
+  j. uncoded serving of rwkv6-7b at its published widths (bf16, depth not
+     cut): 4 x prompt 32 x gen 16 and 1 x prompt 4096 x gen 4, prefill and
+     decode tokens/s and peak memory, gated on prefill + decode logits
+     against the full forward over the same tokens;
+  k. coded head serving of rwkv6-7b at its published widths, as phase e
+     (L = 65 536 head rows, D = 4096) on seed 1 and the largest frozen
+     parity solve of seeds 2-9, raising unless ``decode_ok`` holds at the
+     5e-4 head tolerance and the argmax match is 1.0;
   i. one JSON line with every kernel's numbers and its launches on the
-     main path (phases e to h, counts reset just before e), then the
+     main path (phases e to k, counts reset just before e), then the
      result line.
+
+Phases j and k start from a clean card (every model and bridge released)
+and print the memory still allocated.
 
 Exits non-zero without a result when no CUDA device is visible, or when
 the repository's ``src`` is not beside this script.
@@ -89,6 +102,28 @@ EXEC_DEAD = (7,)                  # the quickstart's straggler
 STREAM_TASKS = 200
 #: phase c's verify-path width: tasks per master in phase h (~200 / 4)
 VERIFY_TASKS = 50
+
+RWKV = "rwkv6-7b"
+#: phase j's runs (batch, prompt, generated tokens): the serving shape of
+#: phase d, and one long prompt -- RWKV's use case, its state is constant
+RWKV_RUNS = ((4, 32, 16), (1, 4096, 4))
+#: phase j's gate, relative to 1 + max |logit|: prefill + decode against
+#: the full forward at the last position.  bf16 activations (unit roundoff
+#: 2^-9) are rounded again at every residual add, norm and matmul output
+#: over 32 layers, and the two runs multiply matrices of different shapes
+#: (T - 1 and 1 rows against T), hence in other accumulation orders; a
+#: wrong state hand-off moves logits by their own size.
+RWKV_LOGIT_TOL = 5e-2
+#: phase k's seeds: seed 1, and the largest frozen parity solve of seeds
+#: 2-9 at L = 65 536, chosen by solve size alone (phase k prints the
+#: sizes: 24 924 and 45 230) from a probe of the bridge's frozen plans
+#: that computed no product; a plan depends on L, the pool, the arrivals
+#: and the delays, not on the weights.
+RWKV_CODED_SEEDS = (1, 2)
+#: phase c's WKV shapes (B, H, T): rwkv6-7b's 64 heads of 64
+WKV_H, WKV_K = 64, 64
+WKV_SHAPES = {"serving prefill": (4, 32), "decode": (4, 1),
+              "long prefill": (1, 4096)}
 
 
 def card_line() -> str:
@@ -375,7 +410,126 @@ def phase_c(dev) -> dict:
                  [2.0 * M * N * K / F32_FLOP_PER_S]))
     del a, w, got, want
     torch.cuda.empty_cache()
+    wkv6_rows(dev, report)
     return rows
+
+
+def _wkv6_inputs(dev, B: int, T: int, dtype, lo=None, hi=None,
+                 state: bool = False, seed: int = 0) -> tuple:
+    """WKV inputs at rwkv6-7b's head shape, as the mixer makes them: r, k,
+    v ~ N(0, 1); decays exp(-exp(-2 + 0.05 N)) (the random init's w0 and
+    LoRA scale) or uniform in [lo, hi]; u ~ N(0, 0.1^2) per head."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    BH, H, K = B * WKV_H, WKV_H, WKV_K
+
+    def n(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    r, k, v = (n(BH, T, K).to(dtype) for _ in range(3))
+    if lo is None:
+        w = torch.exp(-torch.exp(-2.0 + 0.05 * n(BH, T, K)))
+    else:
+        w = lo + (hi - lo) * torch.rand((BH, T, K), generator=gen,
+                                        device=dev)
+    u = 0.1 * n(H, K)
+    s0 = n(BH, K, K) if state else None
+    return r, k, v, w.to(dtype), u, s0
+
+
+def _wkv6_bound(B: int, T: int, esz: int, state: bool) -> tuple:
+    """Least time of one WKV call: each input read once (r, k, v, w, u,
+    and S_0 when given), each output written once (o, S_T); about 6 K V
+    float32 operations per (b, h, t)."""
+    BH, K = B * WKV_H, WKV_K
+    nbytes = (esz * 4 * BH * T * K + 4 * WKV_H * K + esz * BH * T * K
+              + 4 * BH * K * K * (2 if state else 1))
+    return bound(nbytes, [6.0 * BH * T * K * K / F32_FLOP_PER_S])
+
+
+def wkv6_rows(dev, report) -> None:
+    """The wkv6 kernel against its plain version (the chunked form the
+    model's reference runs) at rwkv6-7b's path shapes, in bf16 (the path)
+    and float32, and against the sequential oracle at strong decays.
+
+    Tolerances: float32 outputs at 1e-5 x (1 + max |plain|) -- one
+    recurrence in float32, summed in another order (the plain version
+    telescopes decays through exp/log per chunk); bf16 outputs at 2^-7 x
+    (1 + max |plain|) -- both round a float32 result that differs only in
+    that order, so at most one bf16 step apart at the largest output."""
+    import torch
+    from repro_torch.kernels import ref, wkv6 as wk
+
+    def views(B, r, k, v, w, s0):
+        """(BH, T, .) rows as the plain version's (B, H, T, .)."""
+        return [None if t is None else t.reshape(B, WKV_H, *t.shape[1:])
+                for t in (r, k, v, w, s0)]
+
+    def plain(B, r, k, v, w, u, s0):
+        rb, kb, vb, wb, sb = views(B, r, k, v, w, s0)
+        return ref.wkv6_chunked_ref(rb, kb, vb, wb, u, sb)
+
+    for label, (B, T) in WKV_SHAPES.items():
+        state = T == 1
+        for dt in ((torch.bfloat16, torch.float32) if T > 1
+                   else (torch.bfloat16,)):
+            r, k, v, w, u, s0 = _wkv6_inputs(dev, B, T, dt, state=state)
+            out, s_fin = wk.wkv6_cuda(r, k, v, w, u, s0)
+            want, s_want = plain(B, r, k, v, w, u, s0)
+            torch.cuda.synchronize()
+            scale = 1 + float(want.float().abs().max())
+            tol = (2.0 ** -7 if dt == torch.bfloat16 else 1e-5) * scale
+            err = max_err(out, want.reshape(out.shape))
+            s_err = max_err(s_fin, s_want.reshape(s_fin.shape))
+            s_tol = 1e-5 * (1 + float(s_want.abs().max()))
+            ms = time_ms(lambda: wk.wkv6_cuda(r, k, v, w, u, s0), 20)
+            plain_ms = time_ms(lambda: plain(B, r, k, v, w, u, s0))
+            bnd = _wkv6_bound(B, T, r.element_size(), state)
+            name = str(dt).split(".")[-1]
+            tag = (f"wkv6 {label} B {B} H {WKV_H} T {T} K = V {WKV_K} "
+                   f"{name}{' with S_0' if state else ''}")
+            if s_err > s_tol:
+                raise AssertionError(f"{tag}: final state disagrees with "
+                                     f"the plain version ({s_err} > "
+                                     f"{s_tol})")
+            if label == "long prefill" and dt == torch.bfloat16:
+                report("wkv6", "src/repro_torch/csrc/wkv6.cu",
+                       "src/repro/kernels/wkv6.py:71", err, tol, ms,
+                       plain_ms, None, bnd)
+                continue
+            print(f"[c] {tag}: max_abs_err={err:.3e} (tol {tol:.3e}), "
+                  f"state {s_err:.3e} (tol {s_tol:.3e}); kernel {ms:.4f} "
+                  f"ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms "
+                  f"({bnd[1]})", flush=True)
+            if err > tol:
+                raise AssertionError(f"{tag}: kernel disagrees with its "
+                                     f"plain version ({err} > {tol})")
+            del r, k, v, w, out, want
+
+    # strong decays, float32, against the sequential oracle: the chunked
+    # plain form's exp(-cumsum(log w)) leaves float32's range once a
+    # 64-step chunk's mean log w is below about -1.39
+    B, T = WKV_SHAPES["long prefill"]
+    for lo, hi in ((0.05, 0.999), (0.05, 0.25)):
+        r, k, v, w, u, _ = _wkv6_inputs(dev, B, T, torch.float32, lo, hi,
+                                        seed=1)
+        out, _ = wk.wkv6_cuda(r, k, v, w, u)
+        oracle_ms, want = time_once(lambda: ref.wkv6_chunk_ref(
+            *views(B, r, k, v, w, None)[:4], u))
+        chunked, _ = plain(B, r, k, v, w, u, None)
+        err = max_err(out, want.reshape(out.shape))
+        tol = 1e-5 * (1 + float(want.abs().max()))
+        finite = bool(torch.isfinite(chunked).all())
+        c_err = max_err(chunked, want) if finite else float("nan")
+        print(f"[c] wkv6 strong decays w in [{lo}, {hi}] T {T} float32: "
+              f"max_abs_err={err:.3e} against the sequential oracle (tol "
+              f"{tol:.3e}, oracle {oracle_ms:.1f} ms); chunked plain form "
+              f"finite {finite}, its error {c_err:.3e}", flush=True)
+        if err > tol or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"wkv6 at strong decays [{lo}, {hi}] "
+                                 f"disagrees with the oracle ({err})")
+        del r, k, v, w, out, want, chunked
+    torch.cuda.empty_cache()
 
 
 def phase_d(dev) -> None:
@@ -411,7 +565,8 @@ def _frozen_solve_sizes(bridge) -> list:
             for e in bridge._plan_cache._entries.values() if e.plans]
 
 
-def _coded_head(dev, seed: int, product_dtype) -> object:
+def _coded_head(dev, seed: int, product_dtype, arch: str = ARCH,
+                phase: str = "e") -> object:
     """One full-width coded-head serve; returns its ServeReport."""
     import torch
     from repro_torch import kernels
@@ -420,18 +575,18 @@ def _coded_head(dev, seed: int, product_dtype) -> object:
     from repro_torch.stream import AdmissionConfig
     before = kernels.launch_counts()
     # traced: device spans synchronise, so the per-stage wall is honest
-    tracer = Tracer(meta={"entry": "chip_smoke", "phase": "e"})
+    tracer = Tracer(meta={"entry": "chip_smoke", "phase": phase})
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     bridge = CodedServingBridge(
-        masters=1, arch=ARCH, smoke=False, seed=seed,
+        masters=1, arch=arch, smoke=False, seed=seed,
         slots_per_master=CODED_SLOTS, backend="torch",
         parity_storage="virtual", device_products=True, verify=True,
         admission=AdmissionConfig(policy="edf"), tracer=tracer, device=dev,
         product_dtype=product_dtype)
     bridge._setup_model(CODED_PROMPT + CODED_GEN + 8)
     tag = f"seed {seed}, {str(product_dtype).split('.')[-1]} products"
-    print(f"[e] {tag}: coded head L={bridge.head.L} D={bridge.head.D}; "
+    print(f"[{phase}] {tag}: coded head L={bridge.head.L} D={bridge.head.D}; "
           f"setup {time.perf_counter() - t0:.1f} s", flush=True)
     reqs = synthetic_requests(CODED_REQUESTS, masters=1,
                               vocab=bridge._model["cfg"].vocab,
@@ -443,10 +598,10 @@ def _coded_head(dev, seed: int, product_dtype) -> object:
     sizes = _frozen_solve_sizes(bridge)
     after = kernels.launch_counts()
     grew = {k: after[k] - before[k] for k in after}
-    print(f"[e] {tag}: frozen-plan decode-solve sizes s={sizes}, solve "
+    print(f"[{phase}] {tag}: frozen-plan decode-solve sizes s={sizes}, solve "
           f"steps {rep.solve_steps}/{len(rep.steps)}, peak device memory "
           f"{peak / 2**30:.2f} GiB", flush=True)
-    print(f"[e] {tag}: wall {rep.wall_seconds:.2f} s, "
+    print(f"[{phase}] {tag}: wall {rep.wall_seconds:.2f} s, "
           f"{rep.tokens_generated} tokens "
           f"({rep.tokens_generated / rep.wall_seconds:.2f} tok/s), "
           f"max_err {rep.max_err:.3e}, argmax match "
@@ -455,7 +610,7 @@ def _coded_head(dev, seed: int, product_dtype) -> object:
     stages = {k: round(v, 3) for k, v in rep.per_stage_wall.items()}
     steps = [round(sp.dur, 3) for sp in tracer.spans
              if sp.cat == "step" and sp.name.startswith("step:")]
-    print(f"[e] {tag}: per-stage wall s {stages}; step walls s {steps} "
+    print(f"[{phase}] {tag}: per-stage wall s {stages}; step walls s {steps} "
           f"(the first builds and factors the decode minor)", flush=True)
     answered = {rid: len(t) for rid, t in rep.tokens.items()}
     if len(answered) != CODED_REQUESTS or \
@@ -463,9 +618,10 @@ def _coded_head(dev, seed: int, product_dtype) -> object:
         raise AssertionError(f"not every request was answered: {answered}")
     if not sizes or not all(s > 0 for s in sizes):
         raise AssertionError(f"seed {seed} gave no parity solve")
-    for k in ("coded_matvec", "gen_parity_matvec", "counter_parity_rows"):
+    for k in ("coded_matvec", "gen_parity_matvec", "counter_parity_rows") \
+            + (("wkv6",) if arch == RWKV else ()):
         if grew[k] <= 0:
-            raise AssertionError(f"phase e never launched {k}")
+            raise AssertionError(f"phase {phase} never launched {k}")
     # the bridge's serve closures form reference cycles: collect them so
     # its decode minor is freed before the next seed's is built
     del bridge
@@ -490,6 +646,104 @@ def phase_e(dev) -> None:
                 f"{rep.argmax_match_rate})")
     serve._MODEL_CACHE.clear()
     torch.cuda.empty_cache()
+
+
+def fresh_card(dev, phase: str) -> None:
+    """Release every model and bridge, so a phase starts from a clean
+    card, and print what is still allocated."""
+    import torch
+    from repro_torch.launch import serve
+    serve._MODEL_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{phase}] start: {torch.cuda.memory_allocated(dev) / 2**30:.2f} "
+          f"GiB allocated", flush=True)
+
+
+def phase_j(dev) -> None:
+    """Uncoded serving of rwkv6-7b at its published widths, gated on
+    prefill + decode against the full forward."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step, model_fwd, prefill
+    fresh_card(dev, "j")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg, params = serve.build_model(RWKV, smoke=False, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _leaves(params))
+    print(f"[j] {cfg.name}: d_model {cfg.d_model}, {cfg.n_repeats} layers, "
+          f"{cfg.d_model // cfg.rwkv_head_size} heads of "
+          f"{cfg.rwkv_head_size}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.dtype}, {n_par:.4e} parameters; init "
+          f"{time.perf_counter() - t0:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
+          flush=True)
+    rng = np.random.default_rng(0)
+    for B, P, G in RWKV_RUNS:
+        prompts = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                size=(B, P))).to(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        serve.generate(cfg, params, prompts, 2)              # warm-up
+        toks, t_pre, t_dec = serve.generate(cfg, params, prompts, G)
+        peak = torch.cuda.max_memory_allocated(dev)
+        if toks.shape != (B, G) or (toks < 0).any() or \
+                (toks >= cfg.vocab).any():
+            raise AssertionError(f"phase j: bad tokens {toks}")
+        # the gate: prefill of the first P - 1 tokens + one kernel decode
+        # step against the full forward over all P, at the last position
+        with torch.inference_mode():
+            full = model_fwd(params, {"tokens": prompts},
+                             cfg=cfg)["logits"][:, -1].float()
+            caches = serve.zero_caches(cfg, B, P + 8, device=dev)
+            _, caches = prefill(params, {"tokens": prompts[:, :-1]}, caches,
+                                cfg=cfg)
+            pos = torch.full((B,), P - 1, dtype=torch.int64, device=dev)
+            inc, _ = decode_step(params, prompts[:, -1:], pos, caches,
+                                 cfg=cfg)
+            inc = inc[:, 0].float()
+        err = max_err(inc, full)
+        tol = RWKV_LOGIT_TOL * (1 + float(full.abs().max()))
+        agree = float((inc.argmax(-1) == full.argmax(-1)).float().mean())
+        finite = bool(torch.isfinite(inc).all() and torch.isfinite(full).all())
+        print(f"[j] uncoded serve {B} x prompt {P} x gen {G}: prefill "
+              f"{B * P / t_pre:.1f} tok/s ({t_pre * 1e3:.1f} ms), decode "
+              f"{B * (G - 1) / t_dec:.1f} tok/s ({t_dec * 1e3:.1f} ms), "
+              f"peak {peak / 2**30:.2f} GiB", flush=True)
+        print(f"[j] prefill + decode vs full forward at position {P - 1}: "
+              f"max |dlogit| {err:.4e} (tol {tol:.4e}, max |logit| "
+              f"{float(full.abs().max()):.4f}), argmax agreement {agree}",
+              flush=True)
+        if not finite or err > tol:
+            raise AssertionError(f"phase j: prefill + decode misses the "
+                                 f"full forward ({err} > {tol})")
+        del caches, full, inc
+    del params
+    serve._MODEL_CACHE.clear()
+    torch.cuda.empty_cache()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_k(dev) -> None:
+    """Coded head serving of rwkv6-7b at its published widths, gated."""
+    import torch
+    fresh_card(dev, "k")
+    for seed in RWKV_CODED_SEEDS:
+        rep = _coded_head(dev, seed, torch.float64, arch=RWKV, phase="k")
+        fresh_card(dev, "k")
+        if not rep.decode_ok or rep.argmax_match_rate != 1.0:
+            raise AssertionError(
+                f"seed {seed}: the rwkv6-7b coded head misses the 5e-4 "
+                f"head tolerance or the uncoded argmax (max_err "
+                f"{rep.max_err:.3e}, argmax match {rep.argmax_match_rate})")
 
 
 def phase_f(dev) -> None:
@@ -689,6 +943,8 @@ def main() -> int:
     phase_f(dev)
     phase_g(dev)
     phase_h(dev)
+    phase_j(dev)
+    phase_k(dev)
     launches = kernels.launch_counts()
     for name, n in launches.items():
         if n <= 0:
@@ -702,7 +958,7 @@ def main() -> int:
                                   for n in ("matmul", "coded_matvec",
                                             "mds_encode",
                                             "counter_parity_rows",
-                                            "gen_parity_matvec")]}))
+                                            "gen_parity_matvec", "wkv6")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels of the port (coded serving, the static
-executor, the streaming verify), their plain-torch twins (:mod:`.ref`) and
-the padding/dispatch layer (:mod:`.ops`).
+executor, the streaming verify, the RWKV-6 WKV recurrence), their
+plain-torch twins (:mod:`.ref`) and the padding/dispatch layer
+(:mod:`.ops`).
 
 Each wrapper counts its launches in a plain integer;
 :func:`launch_counts` / :func:`reset_launch_counts` read and clear them, so
@@ -8,7 +9,7 @@ a run can show that its path really went through the kernels.
 """
 from typing import Dict
 
-from . import coded_matvec, matmul, mds_encode
+from . import coded_matvec, matmul, mds_encode, wkv6
 
 __all__ = ["launch_counts", "reset_launch_counts"]
 
@@ -18,7 +19,8 @@ def launch_counts() -> Dict[str, int]:
             "coded_matvec": coded_matvec.LAUNCHES,
             "mds_encode": mds_encode.ENCODE_LAUNCHES,
             "counter_parity_rows": mds_encode.ROWS_LAUNCHES,
-            "gen_parity_matvec": mds_encode.GEN_LAUNCHES}
+            "gen_parity_matvec": mds_encode.GEN_LAUNCHES,
+            "wkv6": wkv6.WKV6_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
@@ -27,3 +29,4 @@ def reset_launch_counts() -> None:
     mds_encode.ENCODE_LAUNCHES = 0
     mds_encode.ROWS_LAUNCHES = 0
     mds_encode.GEN_LAUNCHES = 0
+    wkv6.WKV6_LAUNCHES = 0

@@ -15,6 +15,10 @@ or raises; CPU tensors take the plain version
 Products that feed an MDS decode (``coded_shard_matmul_batch``,
 ``gen_parity_products``) come out in float64 by default: float32 inputs,
 exact products, float64 sums.
+
+``wkv6`` keeps the reference's WKV signature (one shared ``u``, output
+only); ``wkv6_heads`` is the RWKV mixer's form (per-head ``u``, optional
+initial state, final state returned).  Both run the one ``wkv6`` kernel.
 """
 from __future__ import annotations
 
@@ -30,11 +34,12 @@ from .coded_matvec import coded_matvec as _coded_matvec
 from .matmul import matmul
 from .mds_encode import (counter_parity_rows_dev, gen_parity_matvec,
                          mds_encode_dev)
+from .wkv6 import wkv6_dev
 
 __all__ = ["matmul", "mds_encode", "mds_encode_batch", "coded_matvec",
            "coded_matvec_batch", "coded_shard_matmul_batch",
            "counter_parity_rows", "parity_scale", "gen_parity_products",
-           "GeneratedParity"]
+           "GeneratedParity", "wkv6", "wkv6_heads"]
 
 
 def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
@@ -205,3 +210,36 @@ def coded_shard_matmul_batch(tiles: torch.Tensor, x: torch.Tensor, *,
                 np.asarray(spec.lanes, dtype=np.int64)).to(flat.device)
             flat[lanes] = yp
     return flat.reshape(T, R, -1)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, *, chunk: int = 64) -> torch.Tensor:
+    """Batched WKV6 with the reference's signature and result: r, k, w
+    (BH, T, K), v (BH, T, V), one shared u (K,) → out (BH, T, V) in v's
+    dtype.  ``chunk`` is the plain version's chunk (CPU tensors); the
+    kernel walks time step by step and needs no padding."""
+    K = r.shape[-1]
+    out, _ = wkv6_dev(r.contiguous(), k.contiguous(), v.contiguous(),
+                      w.contiguous(), u.float().reshape(1, K).contiguous(),
+                      chunk=chunk)
+    return out
+
+
+def wkv6_heads(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor,
+               state: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RWKV mixer's WKV: r, k, w (B, H, T, K), v (B, H, T, V), u (H,
+    K), ``state`` (B, H, K, V) or None for zeros → (out (B, H, T, V) in
+    v's dtype, final state (B, H, K, V) float32), in one launch."""
+    B, H, T, K = r.shape
+    V = v.shape[-1]
+
+    def rows(t, width):
+        return t.contiguous().reshape(B * H, T, width)
+
+    s0 = None if state is None \
+        else state.float().contiguous().reshape(B * H, K, V)
+    out, s = wkv6_dev(rows(r, K), rows(k, K), rows(v, V), rows(w, K),
+                      u.float().contiguous(), s0)
+    return out.reshape(B, H, T, V), s.reshape(B, H, K, V)

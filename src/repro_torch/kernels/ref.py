@@ -1,5 +1,5 @@
 """Plain-PyTorch versions of every kernel of the port (coded serving, the
-static executor, the streaming verify).
+static executor, the streaming verify, the RWKV-6 WKV recurrence).
 
 The CPU tests run these (a wrapper takes them only for CPU tensors) and
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.  They
@@ -19,7 +19,7 @@ import torch
 
 __all__ = ["matmul_ref", "coded_matvec_ref", "coded_matvec_batch_ref",
            "mds_encode_ref", "threefry2x32_ref", "counter_parity_rows_ref",
-           "gen_parity_ref"]
+           "gen_parity_ref", "wkv6_chunk_ref", "wkv6_chunked_ref"]
 
 _M32 = 0xFFFFFFFF
 _TF_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -123,3 +123,77 @@ def gen_parity_ref(key, scale: float, ctrs: torch.Tensor, w: torch.Tensor,
         r = counter_parity_rows_ref(key, scale, ctrs[i:i + step], cols)
         out[i:i + step] = r.to(out_dtype) @ wx
     return out
+
+
+def wkv6_chunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Sequential RWKV-6 WKV oracle, float32, in v's dtype.
+
+    r, k, w (..., T, K); v (..., T, V); u broadcastable to (..., K) —
+    the reference's (T, K) with a shared (K,) ``u`` is the case of no
+    leading axes.  From S_0 = 0, one step at a time:
+
+        o_t = r_tᵀ (S_t + (u ⊙ k_t) v_tᵀ),   S_{t+1} = diag(w_t) S_t + k_t v_tᵀ
+    """
+    dtype = v.dtype
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    u = u.float()
+    S = r.new_zeros(r.shape[:-2] + (r.shape[-1], v.shape[-1]))
+    out = []
+    for t in range(r.shape[-2]):
+        kv = k[..., t, :, None] * v[..., t, None, :]
+        out.append(((S + u[..., :, None] * kv)
+                    * r[..., t, :, None]).sum(dim=-2))
+        S = w[..., t, :, None] * S + kv
+    return torch.stack(out, dim=-2).to(dtype)
+
+
+def wkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, u: torch.Tensor,
+                     state: Optional[torch.Tensor] = None, chunk: int = 64):
+    """Chunk-parallel RWKV-6 WKV — the port of
+    ``repro.models.rwkv.wkv6_chunked``, with an optional initial state.
+
+    r, k, w (B, H, T, K); v (B, H, T, V); u (H, K); ``state`` (B, H, K, V)
+    or None for zeros.  float32 math; T is padded to the chunk with
+    w = 1.  Returns (out (B, H, T, V) in v's dtype, final state (B, H, K,
+    V) float32).  The decays telescope through ``exp(-cumsum(log w))``,
+    which overflows float32 once a chunk's mean ``log w`` falls below
+    about -1.39 (w < 0.25 at chunk 64); :func:`wkv6_chunk_ref` holds at
+    any decay.
+    """
+    B, H, T, K = r.shape
+    V = v.shape[-1]
+    pad = (-T) % chunk
+    if pad:
+        r, k, v = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                   for t in (r, k, v))
+        w = torch.nn.functional.pad(w, (0, 0, 0, pad), value=1.0)
+    nc = r.shape[2] // chunk
+    u = u.float()[None, :, None, :]
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=r.device), diagonal=-1)
+    S = (torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device)
+         if state is None else state.float())
+    outs = []
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        rc, kc, vc, wc = (t[:, :, sl].float() for t in (r, k, v, w))
+        lw = torch.log(torch.clamp(wc, min=1e-12))
+        lc = torch.cumsum(lw, dim=2)
+        lc_prev = lc - lw
+        r_dec = rc * torch.exp(lc_prev)
+        k_grow = kc * torch.exp(-lc)
+        p = torch.einsum("bhtk,bhsk->bhts", r_dec, k_grow)
+        p = torch.where(causal, p, torch.zeros((), device=p.device))
+        o = torch.einsum("bhts,bhsv->bhtv", p, vc)
+        bonus = torch.einsum("bhtk,bhtk->bht", rc * u, kc)
+        o = o + bonus[..., None] * vc
+        o = o + torch.einsum("bhtk,bhkv->bhtv", r_dec, S)
+        lc_last = lc[:, :, -1]
+        k_carry = kc * torch.exp(lc_last[:, :, None, :] - lc)
+        S = (torch.exp(lc_last)[..., None] * S
+             + torch.einsum("bhtk,bhtv->bhkv", k_carry, vc))
+        outs.append(o)
+    out = torch.cat(outs, dim=2)[:, :, :T]
+    return out.to(v.dtype), S

@@ -5,8 +5,9 @@
         --requests 16 --prompt-len 32 --gen-len 24
 
 Runs a small request pool through prefill → token-by-token decode with a
-shared decode step, reporting throughput.  With ``--coded`` the same model
-is served through the coded-computation bridge
+shared decode step, reporting throughput.  ``--arch rwkv6-7b`` serves the
+RWKV-6 stack (its WKV through the hand-written kernel).  With ``--coded``
+the same model is served through the coded-computation bridge
 (:mod:`repro_torch.serve_coded`): the output-head matmul of every token
 batch is MDS-encoded and executed as per-worker shards scheduled by the
 stream planner (head scope; the ffn/trunk scopes come in a later slice):

@@ -1,4 +1,4 @@
-"""Dense decoder LM stack — the port of the dense-GQA path of
+"""Decoder LM stack — the port of the dense-GQA and RWKV-6 paths of
 ``repro.models.lm``.
 
 A model = embeddings + ``n_repeats`` copies of the repeating ``block``
@@ -15,9 +15,11 @@ layout, so :func:`repro_torch.convert.params_from_numpy` carries the
 reference's parameters across for the tests.  :func:`init_model` draws
 its own from a seeded ``torch.Generator`` with the reference's shapes,
 dtypes and scales (the values differ: the two frameworks' generators
-differ).  Only dense decoder-only stacks of global-attention GQA layers
-with dense FFNs run here; MoE, MLA, Mamba, RWKV, prefix layers, sliding
-windows, encoder-decoder and modality frontends come in later slices.
+differ).  Two kinds of stack run here: dense decoders of global-attention
+GQA layers with dense FFNs, and RWKV-6 stacks (time-mix + channel-mix,
+:mod:`.rwkv`, whose WKV runs through the hand-written kernel).  MoE, MLA,
+Mamba, sliding windows, prefix layers, encoder-decoder stacks and
+modality frontends raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 
 from . import attention as attn
 from . import layers as ly
+from . import rwkv as rwkv_mod
 from .config import ArchConfig
 from ..device import resolve_device
 
@@ -45,16 +48,17 @@ def torch_dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not port."""
+    """Raise ``NotImplementedError`` for what the port does not run yet."""
     dense = all(s.mixer == "attn" and s.ffn in ("swiglu", "gelu", "relu2")
                 and s.sliding_window is None for s in cfg.block)
-    if (not dense or cfg.prefix or cfg.mla is not None or cfg.enc_dec
-            or cfg.frontend is not None or cfg.mtp):
+    rwkv = all(s.mixer == "rwkv" for s in cfg.block)
+    if (not (dense or rwkv) or cfg.prefix or cfg.mla is not None
+            or cfg.enc_dec or cfg.frontend is not None or cfg.mtp):
         raise NotImplementedError(
             f"{cfg.name}: the port runs dense global-attention GQA decoders "
-            "only; MoE, MLA, Mamba, RWKV, sliding windows, prefix layers, "
-            "encoder-decoder and frontends come with the remaining-mixers "
-            "slice")
+            "and RWKV-6 stacks only; MoE, MLA, Mamba, sliding windows, "
+            "prefix layers, encoder-decoder and frontends come with the "
+            "remaining-mixers slice")
 
 
 # ---------------------------------------------------------------------------
@@ -63,11 +67,17 @@ def check_supported(cfg: ArchConfig) -> None:
 
 def _init_layer(gen: torch.Generator, cfg: ArchConfig, spec, dtype,
                 device) -> dict:
-    return {"norm1": ly.init_rms(cfg.d_model, dtype, device),
-            "norm2": ly.init_rms(cfg.d_model, dtype, device),
-            "mixer": attn.init_gqa(gen, cfg, dtype, device),
-            "ffn": ly.init_ffn(gen, cfg.d_model, cfg.d_ff, spec.ffn, dtype,
-                               device)}
+    p = {"norm1": ly.init_rms(cfg.d_model, dtype, device),
+         "norm2": ly.init_rms(cfg.d_model, dtype, device)}
+    if spec.mixer == "rwkv":
+        # the layer spec's ffn field is unused: the channel-mix replaces it
+        p["mixer"] = rwkv_mod.init_rwkv_tmix(gen, cfg, dtype, device)
+        p["ffn"] = rwkv_mod.init_rwkv_cmix(gen, cfg, dtype, device)
+    else:
+        p["mixer"] = attn.init_gqa(gen, cfg, dtype, device)
+        p["ffn"] = ly.init_ffn(gen, cfg.d_model, cfg.d_ff, spec.ffn, dtype,
+                               device)
+    return p
 
 
 def _stack(trees):
@@ -109,13 +119,21 @@ def _apply_layer(p: dict, x, *, cfg: ArchConfig, spec, positions=None,
                  cache=None):
     h = ly.rms_norm(x, p["norm1"], cfg.norm_eps)
     mixer_cache = cache.get("mixer") if cache else None
-    mo, new_mc = attn.apply_gqa(p["mixer"], h, cfg=cfg,
-                                rope_base=cfg.rope_base,
-                                positions=positions, cache=mixer_cache)
+    if spec.mixer == "rwkv":
+        mo, new_mc = rwkv_mod.apply_rwkv_tmix(p["mixer"], h, cfg=cfg,
+                                              cache=mixer_cache)
+    else:
+        mo, new_mc = attn.apply_gqa(p["mixer"], h, cfg=cfg,
+                                    rope_base=cfg.rope_base,
+                                    positions=positions, cache=mixer_cache)
     x = x + mo
     h2 = ly.rms_norm(x, p["norm2"], cfg.norm_eps)
-    x = x + ly.apply_ffn(p["ffn"], h2, spec.ffn)
-    return x, new_mc
+    if spec.mixer == "rwkv":
+        # the channel-mix carries its token shift in the time-mix's cache
+        fo, new_mc = rwkv_mod.apply_rwkv_cmix(p["ffn"], h2, cache=new_mc)
+    else:
+        fo = ly.apply_ffn(p["ffn"], h2, spec.ffn)
+    return x + fo, new_mc
 
 
 def _trunk(params, x, *, cfg: ArchConfig, positions, caches=None):
@@ -128,8 +146,14 @@ def _trunk(params, x, *, cfg: ArchConfig, positions, caches=None):
             x, new_mc = _apply_layer(_at(params["blocks"][name], r), x,
                                      cfg=cfg, spec=spec, positions=positions,
                                      cache=c)
-            if new_mc is not None:
-                blocks[name]["mixer"]["len"][r] = new_mc["len"]
+            if new_mc is None:
+                continue
+            mc = blocks[name]["mixer"]
+            if spec.mixer == "rwkv":
+                for leaf in ("wkv", "shift_t", "shift_c"):
+                    mc[leaf][r].copy_(new_mc[leaf])
+            else:
+                mc["len"][r] = new_mc["len"]
     return ly.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -162,7 +186,9 @@ def init_cache_shapes(cfg: ArchConfig, batch: int, max_len: int
     dt = torch_dtype(cfg)
 
     def stacked(spec):
-        one = attn.gqa_cache_spec(cfg, batch, max_len, dt)
+        one = rwkv_mod.rwkv_cache_spec(cfg, batch, dt) \
+            if spec.mixer == "rwkv" \
+            else attn.gqa_cache_spec(cfg, batch, max_len, dt)
         return {"mixer": {k: ((cfg.n_repeats,) + s, d)
                           for k, (s, d) in one.items()}}
 

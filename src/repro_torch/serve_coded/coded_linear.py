@@ -619,10 +619,13 @@ class CodedLinear:
 
     def device_W(self) -> torch.Tensor:
         """Float32 device-resident W — the operand the generated-parity
-        kernel contracts counter-derived tiles against (uploaded once)."""
+        kernel contracts counter-derived tiles against (uploaded once).
+        Row-major whatever the host array's order: an untied head's W is
+        the transpose of the model's output matrix."""
         if self._W_dev is None:
             self._W_dev = torch.from_numpy(self.W).to(
-                device=self.device, dtype=torch.float32)
+                device=self.device, dtype=torch.float32,
+                memory_format=torch.contiguous_format)
         return self._W_dev
 
     def generator(self, L_tilde: int) -> np.ndarray:

@@ -290,5 +290,8 @@ def test_launch_counts_stay_zero_on_cpu():
     tops.mds_encode_batch(torch.ones(5, 3, dtype=torch.float64),
                           torch.ones(2, 3, 4, dtype=torch.float64))
     tops.coded_matvec_batch(torch.ones(2, 3, 4), torch.ones(2, 4))
-    assert "mds_encode" in kernels.launch_counts()
+    tops.wkv6(*(torch.ones(2, 5, 8) for _ in range(4)), torch.ones(8))
+    tops.wkv6_heads(*(torch.ones(1, 2, 1, 8) for _ in range(4)),
+                    torch.ones(2, 8), torch.zeros(1, 2, 8, 8))
+    assert {"mds_encode", "wkv6"} <= set(kernels.launch_counts())
     assert set(kernels.launch_counts().values()) == {0}

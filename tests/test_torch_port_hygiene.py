@@ -76,7 +76,9 @@ def test_port_imports_neither_jax_nor_the_reference(path):
 def test_entry_points_default_to_cuda():
     from repro_torch.core import (large_scale_scenario, plan_from_assignment,
                                   simple_greedy)
+    from repro_torch.configs import get_smoke_config
     from repro_torch.launch.serve import build_model
+    from repro_torch.models import init_model
     from repro_torch.runtime import CodedExecutor
     from repro_torch.serve_coded import CodedServingBridge
     from repro_torch.stream import StreamingExecutor
@@ -86,6 +88,8 @@ def test_entry_points_default_to_cuda():
         return
     with pytest.raises(RuntimeError, match="cuda"):
         build_model("llama3.2-1b", smoke=True, seed=0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_model(0, get_smoke_config("rwkv6-7b"))
     with pytest.raises(RuntimeError, match="cuda"):
         CodedServingBridge()
     sc = large_scale_scenario(0)

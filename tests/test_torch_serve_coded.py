@@ -298,6 +298,19 @@ def test_device_products_float64_exact_on_packed_problem(storage):
         np.testing.assert_allclose(y.numpy(), want, rtol=1e-12, atol=1e-12)
 
 
+def test_device_W_is_row_major_for_a_transposed_head():
+    """An untied head's W is the transpose of the model's output matrix
+    (``launch.serve.head_matrix``): the device mirror that the
+    generated-parity kernel reads must still be row-major."""
+    W = np.random.default_rng(16).normal(size=(D, L)).T      # (L, D), F order
+    lin = CodedLinear(W, name="h", seed=0, parity_chunk=8,
+                      parity_storage="virtual", backend="torch",
+                      device="cpu")
+    dw = lin.device_W()
+    assert dw.is_contiguous()
+    assert np.array_equal(dw.numpy(), W.astype(np.float32))
+
+
 def test_systematic_rows_take_columns():
     lin, = _linears(CodedLinear, "virtual")
     G = bk.SystematicRows(L, 2 * L, lin.parity_rows)
