@@ -17,8 +17,12 @@ exits non-zero):
      recurrence at rwkv6-7b's serving prefill, decode and long-prefill
      shapes (and against the sequential oracle at strong decays) -- with
      its time (CUDA events, median), the plain version's time, a one-call
-     PyTorch yardstick where one exists, and the least time the card could
-     take (bytes over HBM rate, or operations over the peak of their type);
+     PyTorch yardstick where one exists (for ``mds_encode`` also the same
+     work: the parity rows alone), and the least time the card could take
+     (bytes over HBM rate, or operations over the peak of their type); the
+     launch plan (tiles, grid, K slabs) of each GEMM configuration; and the
+     two GEMM kernels against their plain versions at ragged, unaligned
+     and split-K edge shapes;
   d. uncoded serving of llama3.2-1b at its published widths (bf16):
      prefill and decode tokens/s;
   e. coded serving of llama3.2-1b at its published widths: head scope,
@@ -152,6 +156,22 @@ def time_ms(fn, iters: int = 5) -> float:
     return times[len(times) // 2]
 
 
+def time_queued_ms(fn, iters: int = 20) -> float:
+    """CUDA-event time of ``iters`` back-to-back calls of ``fn`` over
+    ``iters`` (one warm-up call first): the device time per call once the
+    host's launch work overlaps the previous call's kernels."""
+    import torch
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
 def time_once(fn):
     """CUDA-event time of one cold call of ``fn`` and its result (for the
     plain versions that take seconds)."""
@@ -191,19 +211,21 @@ def phase_c(dev) -> dict:
     rows = {}
 
     def report(name, source, replaces, err, tol, ms, plain_ms, lib_ms,
-               bnd):
+               bnd, **extra):
         ok = err <= tol
         print(f"[c] {name}: max_abs_err={err:.3e} (tol {tol:.3e}) "
               f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
               f"{'-' if lib_ms is None else f'{lib_ms:.3f} ms'}, bound "
-              f"{bnd[0]:.3f} ms ({bnd[1]})", flush=True)
+              f"{bnd[0]:.3f} ms ({bnd[1]})"
+              + "".join(f", {k} {v:.3f}" for k, v in extra.items()),
+              flush=True)
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with its plain "
                                  f"version ({err} > {tol})")
         rows[name] = dict(name=name, route="cuda", source=source,
                           replaces=replaces, max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, bound_ms=bnd[0],
-                          bound_by=bnd[1], library_ms=lib_ms)
+                          bound_by=bnd[1], library_ms=lib_ms, **extra)
 
     # -- coded_matvec: one step's packed head tiles against the batch -----
     # float32 tiles and activations; the serving default sums in float64
@@ -300,15 +322,20 @@ def phase_c(dev) -> dict:
         ms = time_ms(lambda: ops.mds_encode_batch(g, a), 3)
         plain_ms = time_ms(lambda: plain_enc(g, a), 3)
         lib_ms = time_ms(lambda: torch.matmul(g, a), 3)
+        # the same work as the kernel: the parity rows only
+        par_ms = time_ms(lambda: torch.matmul(g[:, Lp:], a), 3)
+        print_plan(f"mds_encode {str(dt).split('.')[-1]} executor shape",
+                   "f64" if dt == torch.float64 else "f32", Lp, Lp, Lp, B4)
         if dt == torch.float64:
             report("mds_encode", "src/repro_torch/csrc/mds_encode_gemm.cu",
                    "src/repro/kernels/mds_encode.py:38", err, tol, ms,
-                   plain_ms, lib_ms, bnd)
+                   plain_ms, lib_ms, bnd, library_parity_ms=par_ms)
         else:
             print(f"[c] mds_encode float32 at the executor's shape: "
                   f"max_abs_err={err:.3e} (tol {tol:.3e}) kernel {ms:.3f} "
                   f"ms, plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, "
-                  f"bound {bnd[0]:.3f} ms ({bnd[1]})", flush=True)
+                  f"library on the parity rows {par_ms:.3f} ms, bound "
+                  f"{bnd[0]:.3f} ms ({bnd[1]})", flush=True)
             if err > tol:
                 raise AssertionError(f"mds_encode float32 disagrees ({err})")
         del g, a
@@ -327,13 +354,28 @@ def phase_c(dev) -> dict:
     ms = time_ms(lambda: ops.mds_encode(g, zt))
     plain_ms = time_ms(lambda: plain_enc(g, zt))
     lib_ms = time_ms(lambda: torch.matmul(g, zt))
+    par_ms = time_ms(lambda: torch.matmul(g[Lp:], zt))
     bnd = bound(8.0 * (Lp * Lp + Lp * VERIFY_TASKS
                        + 2 * Lp * VERIFY_TASKS),
                 [2.0 * Lp * Lp * VERIFY_TASKS / F64_FLOP_PER_S])
+    # at this size the wrapper's host work (plan, two allocations, three
+    # launches) is not small beside the kernels: also time calls queued
+    # back to back, which hides it behind the previous call's kernels
+    q_ms = time_queued_ms(lambda: ops.mds_encode(g, zt))
+    q_par_ms = time_queued_ms(lambda: torch.matmul(g[Lp:], zt))
+    print_plan("mds_encode float64 verify shape", "f64", Lp, VERIFY_TASKS,
+               Lp)
     print(f"[c] mds_encode float64 at the verify shape ({2 * Lp} x {Lp}) @ "
           f"({Lp} x {VERIFY_TASKS}): max_abs_err={err:.3e} (tol {tol:.3e}) "
           f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
-          f"{lib_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]})", flush=True)
+          f"{lib_ms:.3f} ms, library on the parity rows {par_ms:.3f} ms, "
+          f"bound {bnd[0]:.3f} ms ({bnd[1]}); queued back to back: kernel "
+          f"{q_ms:.3f} ms, library on the parity rows {q_par_ms:.3f} ms",
+          flush=True)
+    rows["mds_encode"]["verify"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        library_parity_ms=par_ms, bound_ms=bnd[0], max_abs_err=err,
+        queued_ms=q_ms, library_parity_queued_ms=q_par_ms)
     if err > tol or not torch.equal(got[:Lp], zt):
         raise AssertionError(f"mds_encode at the verify shape disagrees "
                              f"({err})")
@@ -400,6 +442,7 @@ def phase_c(dev) -> dict:
     got = ops.matmul(a, w)
     want = ref.matmul_ref(a, w)
     M, K, N = 256, L_HEAD, D
+    print_plan("matmul serving shape", "f32", M, N, K)
     report("matmul", "src/repro_torch/csrc/matmul.cu",
            "src/repro/kernels/matmul.py:38",
            max_err(got, want), 2e-3 * (1 + float(want.abs().max())),
@@ -410,8 +453,101 @@ def phase_c(dev) -> dict:
                  [2.0 * M * N * K / F32_FLOP_PER_S]))
     del a, w, got, want
     torch.cuda.empty_cache()
+    gemm_edge_sweep(dev)
     wkv6_rows(dev, report)
     return rows
+
+
+def print_plan(label: str, dtype: str, M: int, N: int, K: int,
+               batch: int = 1) -> None:
+    """The launch plan a GEMM kernel runs at one of phase c's shapes."""
+    import torch
+    from repro_torch.kernels.plan import gemm_plan
+    p = gemm_plan(dtype, M, N, K, batch, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    c = p.config
+    print(f"[c] plan {label}: {c.name} {c.bm} x {c.bn} tiles ({p.n_tile} "
+          f"columns computed), {c.threads} threads, grid {p.grid} = "
+          f"{p.blocks} blocks, {p.splits} K slabs of {p.k_span}", flush=True)
+
+
+#: phase c's edge shapes: (B, L, L~, S, shared G, systematic, unaligned)
+#: -- ragged everything, K odd, S in {1, 7, 50, 64, 65}, L~ = L, split K,
+#: and operands whose data_ptr is not 16-byte aligned
+ENCODE_EDGES = ((1, 300, 700, 1, True, True, False),
+                (4, 257, 600, 7, False, True, False),
+                (1, 2048, 2300, 50, True, True, False),
+                (1, 4095, 4600, 64, True, True, True),
+                (4, 500, 900, 65, False, True, True),
+                (4, 333, 333, 50, True, True, False),
+                (2, 128, 300, 64, False, False, False),
+                (3, 1000, 1500, 130, True, True, False))
+#: (M, K, N, unaligned) for matmul
+MATMUL_EDGES = ((1, 1, 1, False), (37, 1001, 129, False),
+                (130, 257, 4, True), (64, 8192, 96, False),
+                (256, 4096, 2048, True), (300, 2000, 260, False))
+
+
+def gemm_edge_sweep(dev) -> None:
+    """The two GEMM kernels against their plain versions at ragged and
+    unaligned shapes, each at its tolerance, the systematic prefix
+    bit-equal."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.matmul import matmul_cuda
+    from repro_torch.kernels.mds_encode import mds_encode_dev
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rand(shape, dt, unaligned=False):
+        """A contiguous tensor; ``unaligned`` puts it one element into its
+        storage (not 16-byte aligned)."""
+        n = 1
+        for d in shape:
+            n *= d
+        off = 1 if unaligned else 0
+        flat = torch.randn((n + off,), generator=gen, device=dev, dtype=dt)
+        return flat[off:].view(shape)
+
+    t0 = time.perf_counter()
+    worst = {}
+    for dt, rel in ((torch.float64, 1e-12), (torch.float32, 2e-3)):
+        for B, L, Lt, S, shared, sysm, unal in ENCODE_EDGES:
+            g = rand((Lt, L) if shared else (B, Lt, L), dt, unal)
+            a = rand((B, L, S), dt, unal)
+            got = mds_encode_dev(g, a, systematic=sysm)
+            sys_on = sysm and Lt > L
+            want = torch.cat([a, ref.mds_encode_ref(g[..., L:, :], a)],
+                             dim=1) if sys_on else ref.mds_encode_ref(g, a)
+            err = max_err(got, want)
+            tol = rel * (1 + float(want.abs().max()))
+            kind = f"mds_encode {str(dt).split('.')[-1]}"
+            tag = (f"{kind} B {B} L {L} L~ {Lt} S {S} "
+                   f"{'shared' if shared else 'per-task'} G"
+                   f"{'' if sysm else ', systematic=False'}"
+                   f"{', unaligned' if unal else ''}")
+            if err > tol or got.shape != want.shape:
+                raise AssertionError(f"{tag}: disagrees ({err} > {tol})")
+            if sys_on and not torch.equal(got[:, :L], a):
+                raise AssertionError(f"{tag}: prefix is not A bit for bit")
+            worst[kind] = max(worst.get(kind, 0.0), err / tol)
+    for M, K, N, unal in MATMUL_EDGES:
+        a = rand((M, K), torch.float32, unal)
+        b = rand((K, N), torch.float32, unal)
+        got = matmul_cuda(a, b)
+        want = ref.matmul_ref(a, b)
+        err = max_err(got, want)
+        tol = 2e-3 * (1 + float(want.abs().max()))
+        if err > tol or got.shape != (M, N):
+            raise AssertionError(f"matmul M {M} K {K} N {N}"
+                                 f"{' unaligned' if unal else ''}: "
+                                 f"disagrees ({err} > {tol})")
+        worst["matmul"] = max(worst.get("matmul", 0.0), err / tol)
+    torch.cuda.synchronize()
+    print(f"[c] GEMM edge sweep: {2 * len(ENCODE_EDGES)} mds_encode and "
+          f"{len(MATMUL_EDGES)} matmul shapes agree with their plain "
+          f"versions (largest err / tol "
+          f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} }) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def _wkv6_inputs(dev, B: int, T: int, dtype, lo=None, hi=None,
@@ -953,8 +1089,9 @@ def main() -> int:
     print(f"[i] total {time.perf_counter() - t_start:.1f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
-    print(json.dumps({"kernels": [{k: rows[n][k] for k in keys}
+            "library_ms", "library_parity_ms", "verify")
+    print(json.dumps({"kernels": [{k: rows[n][k] for k in keys
+                                   if k in rows[n]}
                                   for n in ("matmul", "coded_matvec",
                                             "mds_encode",
                                             "counter_parity_rows",

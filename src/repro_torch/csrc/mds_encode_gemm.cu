@@ -1,159 +1,297 @@
-// MDS encode A~_b = G_b @ A_b for Hopper (sm_90a), one launch per stack.
+// MDS encode A~_b = G_b @ A_b for Hopper (sm_90a), one call per stack.
 //
 // Replaces repro/kernels/mds_encode.py::mds_encode_pallas (which runs the
 // tiled matmul_pallas) together with its wrappers ops.mds_encode /
 // ops.mds_encode_batch (repro/kernels/ops.py:59-86): the reference skips the
 // identity prefix of a systematic generator, multiplies only the L~ - L
 // parity rows, concatenates A in front, and vmaps the Pallas call over the
-// task axis.  Here the task axis is gridDim.z, and in systematic mode the
-// first ceil(L / BM) row tiles of the grid copy A's rows into the output
-// bit-exact while the others compute the parity rows -- the concatenate's
-// extra pass over the output never happens.  G is one shared (L~, L)
-// generator (stride 0) or one per task.
+// task axis.  Here the task axis is in the grid, and in systematic mode a
+// copy kernel writes A's rows into the output bit-exact while the GEMM
+// writes the parity rows below them -- the concatenate's extra pass over
+// the output never happens.  G is one shared (L~, L) generator (stride 0)
+// or one per task.
 //
-// Types: T = float accumulates in float (the reference's numerics);
-// T = double accumulates in double (the static executor and the streaming
-// verify, whose results feed an MDS decode held to 1e-6).
+// Types: float runs the port's float32 GEMM core (sgemm.cuh, the
+// reference's numerics); double (the static executor and the streaming
+// verify, whose results feed an MDS decode held to 1e-6) runs on the FP64
+// tensor cores below.
 //
 // What bounds it on this card: at the executor's shape (4 tasks x parity
 // (1e4 x 1e4) @ (1e4 x 1e4), double) 8e12 FLOP against 4.8 GB moved --
-// ~1700 FLOP/byte, far above the ridge, so it is bound by the float64
-// pipes (34 TFLOP/s outside the tensor cores, 67 with DMMA).  At the
-// verify path's skinny shape ((1e4 x 1e4) @ (1e4 x ~50)) it moves G once,
-// 0.8 GB, and is bound by HBM bytes.
+// ~1700 FLOP/byte, far above the ridge, so it is bound by the FP64 tensor
+// cores (67 TFLOP/s; 34 outside them).  At the verify path's skinny shape
+// ((1e4 x 1e4) @ (1e4 x ~50)) it moves G once, 0.8 GB, and is bound by HBM
+// bytes; the 1e10 FLOP would take 0.29 ms on the SIMT pipes alone, above
+// that bound, so it needs the tensor cores too.
 //
-// Design: a plain SIMT GEMM, right first.  128 x 128 output tiles, 256
-// threads each holding an 8 x 8 register tile, BK = 8 slabs of G
-// (transposed) and A in shared memory, double-buffered, with the next slab
-// prefetched into registers while the current one is consumed -- one
-// __syncthreads per slab.  A thread owns rows ty + 16 i and columns
-// tx + 16 j, so a half-warp reads 16 consecutive shared words (no bank
-// conflicts) and the epilogue stores are coalesced.  8 x 8 is what keeps
-// the float64 FMAs fed from shared memory (16 loads per 64 FMAs).  Ragged
-// edges are masked; no operand padding and no alignment is assumed.
-// FP64 mma.sync (DMMA) is the next step.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Design (double): mma.sync.aligned.m16n8k8.row.col.f64 (DMMA; one of the
+// m16n8k* shapes that sm_90 adds to sm_80's m8n8k4).  A 4-stage ring of
+// BK = 16 slabs of G (Gs[m][k]) and A (As[k][n]) fills through cp.async,
+// one __syncthreads a slab.  Lane (g, t) reads its fragments with 8-byte
+// loads straight into the mma's operand registers (G: rows g, g + 8 at k
+// slots t, t + 4; A: k slots t, t + 4 at column g) -- 16-byte loads of
+// adjacent k put the values in the wrong registers and ptxas then copies
+// every fragment before each mma.  Shared memory is swizzled so the loads
+// are free of bank conflicts: the 16-byte chunk c of Gs row m sits at
+// c ^ 2 (m & 3), of As row k at c ^ 2 (k & 3) (a half-warp reads 4 rows x
+// 4 consecutive elements).  Two tile configurations (kernels/plan.py picks
+// one from the shape):
+//   wide   (S > 64): 128 x 128 tiles, 8 warps of 64 x 32, one block an SM
+//          (the 64 accumulators a thread fill half the register file); a
+//          warp loads all of a k-step's fragments, then issues its 16 mmas;
+//   skinny (S <= 64): 128 x 64 tiles, 4 warps of 32 x 64 of which only the
+//          ceil(S / 8) live n8 tiles are computed, two blocks an SM; a warp
+//          holds its G fragments and streams A's one n8 tile at a time.
+//          K is split deterministically until the grid has at least two
+//          blocks an SM, so the whole stream of G stays in flight while the
+//          right operand (1e4 x 50 doubles, 4 MB) is read from L2.
+// (Each loop order was the faster of the two at its shape.)  Blocks walk
+// output tiles in groups of eight tile rows (blocks resident together
+// share panels of G and A in L2).  Each output element is a float64 sum of
+// exact float64 products in another order than a sequential loop.  Ragged
+// edges are masked; operands whose rows or base are not 16-byte aligned
+// take the same pipeline with 8-byte copies.
+#include "gemm_common.cuh"
+#include "sgemm.cuh"
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 8, TM = 8, TN = 8;
-constexpr int THREADS = 256;                 // 16 x 16 threads
-constexpr int LOADS = BM * BK / THREADS;     // per thread per operand slab
+constexpr int BK = 16, STAGES = 4, GROUP_M = 8;
 
-__device__ __forceinline__ float fma_t(float a, float b, float c) {
-  return fmaf(a, b, c);
+__device__ __forceinline__ void dmma_16x8x8(double (&c)[4],
+                                            const double (&a)[4],
+                                            const double (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
 }
-__device__ __forceinline__ double fma_t(double a, double b, double c) {
-  return fma(a, b, c);
+
+template <int BM, int BN, int WM, int WN>
+struct Tiles {
+  static constexpr int WARPS_N = BN / WN;
+  static constexpr int THREADS = 32 * (BM / WM) * WARPS_N;
+  static constexpr int MT = WM / 16, NT = WN / 8;
+  static constexpr int G_TILE = BM * BK, A_TILE = BK * BN;
+  static constexpr int STAGE = G_TILE + A_TILE;             // doubles
+  static constexpr int SMEM_BYTES = STAGES * STAGE * 8;
+  static_assert(BN % 16 == 0, "As swizzle needs 8-chunk groups");
+  static_assert((G_TILE / 2) % THREADS == 0 && (A_TILE / 2) % THREADS == 0,
+                "whole chunks per thread");
+};
+
+// offsets (in doubles) of element (m, k) of Gs and (k, n) of As
+__device__ __forceinline__ int gs_at(int m, int k) {
+  return m * BK + 2 * ((k >> 1) ^ (2 * (m & 3))) + (k & 1);
+}
+template <int BN>
+__device__ __forceinline__ int as_at(int k, int n) {
+  return k * BN + 2 * ((n >> 1) ^ (2 * (k & 3))) + (n & 1);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-mds_encode_kernel(const T* __restrict__ G, long long g_stride,
-                  const T* __restrict__ A, T* __restrict__ out, int Lt,
-                  int L, int S, int copy_tiles, int row_off) {
-  const int task = blockIdx.z;
-  A += (size_t)task * L * S;
-  out += (size_t)task * Lt * S;
-  G += (size_t)task * g_stride;
-  const int tid = threadIdx.x;
-  const int col0 = blockIdx.x * BN;
+template <int BM, int BN, int WM, int WN, int MIN_BLOCKS, int VEC>
+__global__ void __launch_bounds__(Tiles<BM, BN, WM, WN>::THREADS, MIN_BLOCKS)
+dgemm_kernel(const double* __restrict__ G, long long g_bstride, int ldg,
+             const double* __restrict__ A, long long a_bstride, int lda,
+             double* __restrict__ C, long long c_bstride,
+             long long c_zstride, int ldc, int M, int N, int K, int batch,
+             int k_span) {
+  using T = Tiles<BM, BN, WM, WN>;
+  extern __shared__ __align__(16) double dsm[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp / T::WARPS_N, wn = warp % T::WARPS_N;
+  const int b = blockIdx.z % batch, z = blockIdx.z / batch;
+  G += b * g_bstride;
+  A += b * a_bstride;
+  C += b * c_bstride + z * c_zstride;
+  int tm, tn;
+  gemm::grouped_tile<GROUP_M>(tm, tn);
+  const int row0 = tm * BM, col0 = tn * BN;
+  const int k_begin = z * k_span, k_end = min(K, k_begin + k_span);
+  const int n_slabs = (k_end - k_begin + BK - 1) / BK;
 
-  if ((int)blockIdx.y < copy_tiles) {
-    // systematic prefix: out[r] = A[r], bit-exact
-    const int r0 = blockIdx.y * BM;
-    for (int e = tid; e < BM * BN; e += THREADS) {
-      const int r = r0 + e / BN, c = col0 + e % BN;
-      if (r < L && c < S) out[(size_t)r * S + c] = A[(size_t)r * S + c];
+  auto load = [&](int slot, int kt) {
+    double* Gs = dsm + slot * T::STAGE;
+    double* As = Gs + T::G_TILE;
+    const int k0 = k_begin + kt * BK;
+    if constexpr (VEC == 16) {
+#pragma unroll
+      for (int q = 0; q < T::G_TILE / 2 / T::THREADS; ++q) {
+        const unsigned e = tid + q * T::THREADS;
+        const int m = e / (BK / 2), k = 2 * (e % (BK / 2));
+        const int gr = row0 + m, gk = k0 + k;
+        const bool ok = gr < M && gk < k_end;
+        gemm::cp_async<16>(Gs + gs_at(m, k),
+                           ok ? G + (size_t)gr * ldg + gk : G, ok ? 16 : 0);
+      }
+#pragma unroll
+      for (int q = 0; q < T::A_TILE / 2 / T::THREADS; ++q) {
+        const unsigned e = tid + q * T::THREADS;
+        const int k = e / (BN / 2), n = 2 * (e % (BN / 2));
+        const int gk = k0 + k, gc = col0 + n;
+        const bool ok = gk < k_end && gc < N;
+        gemm::cp_async<16>(As + as_at<BN>(k, n),
+                           ok ? A + (size_t)gk * lda + gc : A, ok ? 16 : 0);
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < T::G_TILE / T::THREADS; ++q) {
+        const unsigned e = tid + q * T::THREADS;
+        const int m = e / BK, k = e % BK;
+        const int gr = row0 + m, gk = k0 + k;
+        const bool ok = gr < M && gk < k_end;
+        gemm::cp_async<8>(Gs + gs_at(m, k),
+                          ok ? G + (size_t)gr * ldg + gk : G, ok ? 8 : 0);
+      }
+#pragma unroll
+      for (int q = 0; q < T::A_TILE / T::THREADS; ++q) {
+        const unsigned e = tid + q * T::THREADS;
+        const int k = e / BN, n = e % BN;
+        const int gk = k0 + k, gc = col0 + n;
+        const bool ok = gk < k_end && gc < N;
+        gemm::cp_async<8>(As + as_at<BN>(k, n),
+                          ok ? A + (size_t)gk * lda + gc : A, ok ? 8 : 0);
+      }
     }
-    return;
+  };
+
+  // n8 tiles of this warp with at least one column inside N (warp-uniform)
+  const int n_live = min(T::NT, max(0, (N - col0 - wn * WN + 7) / 8));
+  double acc[T::MT][T::NT][4];
+#pragma unroll
+  for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < T::NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.0;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_slabs) load(s, s);
+    gemm::cp_async_commit();
   }
-  // output rows [row0, row0 + BM) of out, from G rows of the same index
-  const int row0 = row_off + (blockIdx.y - copy_tiles) * BM;
-  const int K = L;
-
-  __shared__ T Gs[2][BK][BM + 1];     // G slab, transposed: Gs[k][m]
-  __shared__ T As[2][BK][BN];
-  const int tx = tid % 16, ty = tid / 16;
-
-  T g_reg[LOADS], a_reg[LOADS];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int q = 0; q < LOADS; ++q) {
-      const int e = tid + q * THREADS;
-      const int m = e / BK, k = e % BK;        // G: 8 consecutive k per row
-      const int gr = row0 + m, gk = k0 + k;
-      g_reg[q] = (gr < Lt && gk < K) ? G[(size_t)gr * K + gk] : T(0);
-      const int ak = e / BN, n = e % BN;       // A: 128 consecutive cols
-      const int gak = k0 + ak, gc = col0 + n;
-      a_reg[q] = (gak < K && gc < S) ? A[(size_t)gak * S + gc] : T(0);
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int q = 0; q < LOADS; ++q) {
-      const int e = tid + q * THREADS;
-      Gs[buf][e % BK][e / BK] = g_reg[q];
-      As[buf][e / BN][e % BN] = a_reg[q];
-    }
-  };
-
-  T acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = T(0);
-
-  fetch(0);
-  store(0);
-  __syncthreads();
-  int buf = 0;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const bool more = k0 + BK < K;
-    if (more) fetch(k0 + BK);
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      T a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = Gs[buf][k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = As[buf][k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fma_t(a[i], b[j], acc[i][j]);
-    }
-    if (more) store(buf ^ 1);
+  for (int kt = 0; kt < n_slabs; ++kt) {
+    gemm::cp_async_wait<STAGES - 2>();
     __syncthreads();
-    buf ^= 1;
-  }
+    const int next = kt + STAGES - 1;
+    if (next < n_slabs) load(next % STAGES, next);
+    gemm::cp_async_commit();
+    const double* Gs = dsm + (kt % STAGES) * T::STAGE;
+    const double* As = Gs + T::G_TILE;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= Lt) continue;
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const int k = 8 * kk + t;               // this lane's k slots: k, k + 4
+      // G fragment of m16 tile i: (g, k), (g + 8, k), (g, k + 4), (g + 8,
+      // k + 4); A fragment of n8 tile j: (k, g), (k + 4, g)
+      auto g_frag = [&](int i, double (&a)[4]) {
+        const int r = wm * WM + i * 16 + g;
+        a[0] = Gs[gs_at(r, k)];
+        a[1] = Gs[gs_at(r + 8, k)];
+        a[2] = Gs[gs_at(r, k + 4)];
+        a[3] = Gs[gs_at(r + 8, k + 4)];
+      };
+      auto a_frag = [&](int j, double (&b)[2]) {
+        const int n = wn * WN + j * 8 + g;
+        b[0] = As[as_at<BN>(k, n)];
+        b[1] = As[as_at<BN>(k + 4, n)];
+      };
+      double af[T::MT][4];
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = col0 + tx + 16 * j;
-      if (c < S) out[(size_t)r * S + c] = acc[i][j];
+      for (int i = 0; i < T::MT; ++i) g_frag(i, af[i]);
+      if constexpr (T::NT > T::MT) {
+        // skinny: stream A's fragments one n8 tile at a time
+#pragma unroll
+        for (int j = 0; j < T::NT; ++j)
+          if (j < n_live) {
+            double bf[2];
+            a_frag(j, bf);
+#pragma unroll
+            for (int i = 0; i < T::MT; ++i) dmma_16x8x8(acc[i][j], af[i], bf);
+          }
+      } else {
+        // wide: every fragment of the step first, then its mmas
+        double bf[T::NT][2];
+#pragma unroll
+        for (int j = 0; j < T::NT; ++j)
+          if (j < n_live) a_frag(j, bf[j]);
+#pragma unroll
+        for (int j = 0; j < T::NT; ++j)
+          if (j < n_live)
+#pragma unroll
+            for (int i = 0; i < T::MT; ++i)
+              dmma_16x8x8(acc[i][j], af[i], bf[j]);
+      }
     }
   }
+
+#pragma unroll
+  for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + wm * WM + i * 16 + g + 8 * h;
+      if (r >= M) continue;
+      double* crow = C + (size_t)r * ldc;
+#pragma unroll
+      for (int j = 0; j < T::NT; ++j) {
+        const int c = col0 + wn * WN + j * 8 + 2 * t;
+        if (c < N) crow[c] = acc[i][j][2 * h];
+        if (c + 1 < N) crow[c + 1] = acc[i][j][2 * h + 1];
+      }
+    }
 }
 
-template <typename T>
-int launch(const void* G, long long g_stride, const void* A, void* out,
-           int B, int Lt, int L, int S, int systematic, cudaStream_t st) {
-  if (B <= 0 || Lt <= 0 || S <= 0) return 0;
-  const bool sys = systematic && Lt > L;
-  const int copy_tiles = sys ? (L + BM - 1) / BM : 0;
-  const int row_off = sys ? L : 0;
-  const int gemm_tiles = (Lt - row_off + BM - 1) / BM;
-  dim3 grid((S + BN - 1) / BN, copy_tiles + gemm_tiles, B);
+template <int BM, int BN, int WM, int WN, int MIN_BLOCKS>
+int dgemm(const double* G, long long g_bstride, int ldg, const double* A,
+          long long a_bstride, int lda, double* C, long long c_bstride,
+          int ldc, double* ws, int M, int N, int K, int batch, int splits,
+          int k_span, cudaStream_t st) {
+  using T = Tiles<BM, BN, WM, WN>;
+  if (!gemm::plan_ok(K, splits, k_span, BK))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch * splits);
   if (grid.y > 65535 || grid.z > 65535)
     return (int)cudaErrorInvalidConfiguration;
-  mds_encode_kernel<T><<<grid, THREADS, 0, st>>>(
-      static_cast<const T*>(G), g_stride, static_cast<const T*>(A),
-      static_cast<T*>(out), Lt, L, S, copy_tiles, row_off);
+  double* out = splits > 1 ? ws : C;
+  const long long o_bstride = splits > 1 ? (long long)M * N : c_bstride;
+  const int o_ld = splits > 1 ? N : ldc;
+  // 16-byte copies need every row start and base 16-byte aligned
+  const bool vec = gemm::aligned16(G) && gemm::aligned16(A) && K % 2 == 0 &&
+                   N % 2 == 0 && ldg % 2 == 0 && lda % 2 == 0 &&
+                   g_bstride % 2 == 0 && a_bstride % 2 == 0;
+  auto kern = vec ? dgemm_kernel<BM, BN, WM, WN, MIN_BLOCKS, 16>
+                  : dgemm_kernel<BM, BN, WM, WN, MIN_BLOCKS, 8>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, T::THREADS, T::SMEM_BYTES, st>>>(
+      G, g_bstride, ldg, A, a_bstride, lda, out, o_bstride,
+      (long long)M * N * batch, o_ld, M, N, K, batch, k_span);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  return gemm::sum_splits<double>(ws, C, batch, M, N, splits, ldc, c_bstride,
+                                  st);
+}
+
+// out_b[i] = A_b[i] for i < L * S: the systematic prefix, bit for bit
+template <typename T>
+__global__ void copy_prefix_kernel(const T* __restrict__ A,
+                                   T* __restrict__ out, size_t n,
+                                   size_t out_bstride) {
+  const T* src = A + blockIdx.y * n;
+  T* dst = out + blockIdx.y * out_bstride;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    dst[i] = src[i];
+}
+
+template <typename T>
+int copy_prefix(const T* A, T* out, int B, size_t n, size_t out_bstride,
+                cudaStream_t st) {
+  const size_t want = (n + 255) / 256;
+  dim3 grid((unsigned)(want < 1024 ? want : 1024), B);
+  copy_prefix_kernel<T><<<grid, 256, 0, st>>>(A, out, n, out_bstride);
   return (int)cudaGetLastError();
 }
 
@@ -166,14 +304,48 @@ extern "C" {
 // `systematic` (and L~ > L) the top L rows of G are taken to be I_L: out's
 // first L rows are copies of A and only G's parity rows are multiplied.
 // `f64` selects double (else float) for every operand and the accumulator.
+// The product (M = L~ - L parity rows, or L~) runs on the plan from
+// kernels/plan.py: `config` (0 sgemm for float; 1 wide or 2 skinny for
+// double), `splits` K slabs of `k_span`, and `ws` of splits * B * M * S
+// elements when splits > 1.
 int repro_mds_encode(int f64, const void* G, long long g_stride,
                      const void* A, void* out, int B, int Lt, int L, int S,
-                     int systematic, void* stream) {
+                     int systematic, int config, int splits, int k_span,
+                     void* ws, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return f64 ? launch<double>(G, g_stride, A, out, B, Lt, L, S, systematic,
-                              st)
-             : launch<float>(G, g_stride, A, out, B, Lt, L, S, systematic,
-                             st);
+  if (B <= 0 || Lt <= 0 || S <= 0) return 0;
+  if (B > 65535) return (int)cudaErrorInvalidConfiguration;
+  const bool sys = systematic && Lt > L;
+  const int row_off = sys ? L : 0, M = Lt - row_off;
+  const long long a_bstride = (long long)L * S, c_bstride = (long long)Lt * S;
+  const size_t off_g = (size_t)row_off * L, off_c = (size_t)row_off * S;
+  int err = 0;
+  if (f64) {
+    const double* g = static_cast<const double*>(G) + off_g;
+    const double* a = static_cast<const double*>(A);
+    double* o = static_cast<double*>(out);
+    double* w = static_cast<double*>(ws);
+    if (sys) err = copy_prefix(a, o, B, (size_t)L * S, (size_t)c_bstride, st);
+    if (err) return err;
+    if (config == 1)
+      return dgemm<128, 128, 64, 32, 1>(g, g_stride, L, a, a_bstride, S,
+                                        o + off_c, c_bstride, S, w, M, S, L,
+                                        B, splits, k_span, st);
+    if (config == 2)
+      return dgemm<128, 64, 32, 64, 2>(g, g_stride, L, a, a_bstride, S,
+                                       o + off_c, c_bstride, S, w, M, S, L,
+                                       B, splits, k_span, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (config != 0) return (int)cudaErrorInvalidValue;
+  const float* g = static_cast<const float*>(G) + off_g;
+  const float* a = static_cast<const float*>(A);
+  float* o = static_cast<float*>(out);
+  if (sys) err = copy_prefix(a, o, B, (size_t)L * S, (size_t)c_bstride, st);
+  if (err) return err;
+  return sgemm::launch(g, g_stride, L, a, a_bstride, S, o + off_c, c_bstride,
+                       S, static_cast<float*>(ws), M, S, L, B, splits,
+                       k_span, st);
 }
 
 }  // extern "C"

@@ -3,10 +3,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` under the repo
-root (the hash covers the source and the flags, so an edited source is
-rebuilt).  Nothing here runs at import: the first launch builds what it
-needs, and :func:`build_all` builds every library at once, one ``nvcc`` per
-source, all started together.
+root (the hash covers the source, every shared header ``csrc/*.cuh`` and
+the flags, so an edited source or header is rebuilt).  Nothing here runs at
+import: the first launch builds what it needs, and :func:`build_all` builds
+every library at once, one ``nvcc`` per source, all started together.
 """
 from __future__ import annotations
 
@@ -46,9 +46,11 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD / f"lib{name}-{digest[:12]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str) -> subprocess.Popen:

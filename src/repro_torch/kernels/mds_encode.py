@@ -15,8 +15,10 @@ import ctypes
 import torch
 
 from . import _build
-from ._launch import F32, I, P, U32, check_cuda, raise_on_error, stream_ptr
+from ._launch import (F32, I, P, U32, check_cuda, raise_on_error, sm_count,
+                      stream_ptr)
 from .coded_matvec import coded_matvec
+from .plan import gemm_plan
 from .ref import counter_parity_rows_ref, gen_parity_ref, mds_encode_ref
 
 __all__ = ["mds_encode_dev", "counter_parity_rows_dev", "gen_parity_matvec",
@@ -49,7 +51,7 @@ def _gemm_lib():
     lib = _build.library("mds_encode_gemm")
     if not getattr(lib, "_typed", False):
         lib.repro_mds_encode.argtypes = [I, P, ctypes.c_longlong, P, P, I, I,
-                                         I, I, I, P]
+                                         I, I, I, I, I, I, P, P]
         lib.repro_mds_encode.restype = I
         lib._typed = True
     return lib
@@ -63,7 +65,9 @@ def mds_encode_dev(g: torch.Tensor, a: torch.Tensor, *,
 
     With ``systematic`` and L̃ > L, G's top L rows are taken to be I_L: the
     first L output rows are A's, bit-exact, and only the parity rows are
-    multiplied.  One launch for the whole stack."""
+    multiplied.  One call for the whole stack, on the launch plan of
+    :func:`repro_torch.kernels.plan.gemm_plan` for the (L̃ - L or L̃) x L
+    @ L x S products."""
     global ENCODE_LAUNCHES
     if a.dim() != 3 or g.dim() not in (2, 3):
         raise ValueError(f"mds_encode: expected a (B, L, S) and g (L~, L) or "
@@ -85,11 +89,15 @@ def mds_encode_dev(g: torch.Tensor, a: torch.Tensor, *,
                          f"{a.dtype}")
     check_cuda("mds_encode a", a, a.dtype, 3, dev)
     check_cuda("mds_encode g", g, a.dtype, g.dim(), dev)
+    f64 = a.dtype == torch.float64
+    plan = gemm_plan("f64" if f64 else "f32", Lt - L if sys else Lt, S, L,
+                     batch=B, sms=sm_count(dev))
     out = torch.empty((B, Lt, S), dtype=a.dtype, device=dev)
+    ws = torch.empty((max(plan.ws_elems, 1),), dtype=a.dtype, device=dev)
     err = _gemm_lib().repro_mds_encode(
-        int(a.dtype == torch.float64), g.data_ptr(),
-        Lt * L if g.dim() == 3 else 0, a.data_ptr(), out.data_ptr(), B, Lt,
-        L, S, int(sys), stream_ptr(dev))
+        int(f64), g.data_ptr(), Lt * L if g.dim() == 3 else 0, a.data_ptr(),
+        out.data_ptr(), B, Lt, L, S, int(sys), plan.config.code, plan.splits,
+        plan.k_span, ws.data_ptr(), stream_ptr(dev))
     raise_on_error("mds_encode", err)
     ENCODE_LAUNCHES += 1
     return out

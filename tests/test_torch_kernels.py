@@ -295,3 +295,78 @@ def test_launch_counts_stay_zero_on_cpu():
                     torch.ones(2, 8), torch.zeros(1, 2, 8, 8))
     assert {"mds_encode", "wkv6"} <= set(kernels.launch_counts())
     assert set(kernels.launch_counts().values()) == {0}
+
+
+# -- launch plans of the GEMM kernels (kernels/plan.py) ----------------------
+
+#: (dtype, M, N, K, batch) at chip_smoke.py's shapes: phase c's serving
+#: matmul, executor-shape and verify-shape encodes (float64 and float32),
+#: phase g's executor encode (parity rows of a redundancy-1.33 plan) and
+#: phase h's per-master verify encode
+PLAN_SHAPES = {
+    "matmul serving": ("f32", 256, 2048, 128512, 1),
+    "encode executor f64": ("f64", 10000, 10000, 10000, 4),
+    "encode executor f32": ("f32", 10000, 10000, 10000, 4),
+    "encode verify": ("f64", 10000, 50, 10000, 1),
+    "executor phase g": ("f64", 3300, 10000, 10000, 4),
+    "verify phase h": ("f64", 3300, 50, 10000, 1),
+    "ragged small": ("f64", 7, 65, 33, 3),
+}
+
+
+@pytest.mark.parametrize("label", sorted(PLAN_SHAPES))
+def test_gemm_plan_fits_cuda_limits_and_its_workspace(label):
+    from repro_torch.kernels.plan import gemm_plan
+    dt, M, N, K, batch = PLAN_SHAPES[label]
+    p = gemm_plan(dt, M, N, K, batch, sms=132)
+    gx, gy, gz = p.grid
+    cfg = p.config
+    assert cfg.dtype == dt
+    assert (gx, gy) == (-(-N // cfg.bn), -(-M // cfg.bm))
+    assert gz == batch * p.splits and gy <= 65535 and gz <= 65535  # CUDA
+    # slabs of a multiple of BK that cover K, none empty
+    assert p.k_span % cfg.bk == 0
+    assert p.splits * p.k_span >= K > (p.splits - 1) * p.k_span
+    assert p.ws_elems == (p.splits * batch * M * N if p.splits > 1 else 0)
+
+
+@pytest.mark.parametrize("label", ["matmul serving", "encode verify",
+                                   "verify phase h"])
+def test_gemm_plan_fills_the_card_at_skinny_shapes(label):
+    """Too few output tiles for 132 SMs: K is split until the grid holds
+    at least two blocks an SM."""
+    from repro_torch.kernels.plan import gemm_plan
+    p = gemm_plan(*PLAN_SHAPES[label], sms=132)
+    assert p.splits > 1 and p.blocks >= 2 * 132
+
+
+def test_gemm_plan_configurations():
+    """float64 takes the skinny DMMA tiles up to 64 columns (computing S
+    rounded up to 8), the wide ones beyond; float32 the sgemm tiles; a
+    product that fills the card is not split."""
+    from repro_torch.kernels.plan import gemm_plan
+    assert gemm_plan("f64", 10000, 50, 10000).config.name == "dgemm_skinny"
+    assert gemm_plan("f64", 10000, 50, 10000).n_tile == 56
+    assert gemm_plan("f64", 100, 64, 100).config.name == "dgemm_skinny"
+    assert gemm_plan("f64", 100, 65, 100).config.name == "dgemm_wide"
+    assert gemm_plan("f32", 100, 5, 100).config.name == "sgemm"
+    p = gemm_plan("f64", 10000, 10000, 10000, 4)
+    assert p.splits == 1 and p.ws_elems == 0 and p.blocks == 79 * 79 * 4
+    with pytest.raises(ValueError):
+        gemm_plan("f16", 8, 8, 8)
+
+
+def test_build_target_follows_shared_headers(tmp_path, monkeypatch):
+    """A library's hash covers csrc/*.cuh: an edited header rebuilds it."""
+    import shutil
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build._target(n) for n in _build.SOURCES}
+    assert before == {n: _build._target(n) for n in _build.SOURCES}
+    header = csrc / "gemm_common.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {n: _build._target(n) for n in _build.SOURCES}
+    assert after["matmul"] != before["matmul"]
+    assert after["mds_encode_gemm"] != before["mds_encode_gemm"]
