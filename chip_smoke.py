@@ -379,6 +379,11 @@ def phase_c(dev) -> dict:
     if err > tol or not torch.equal(got[:Lp], zt):
         raise AssertionError(f"mds_encode at the verify shape disagrees "
                              f"({err})")
+    # split K is summed in a fixed order and the ring is handed over by
+    # mbarriers: every call must give the same bits
+    if not all(torch.equal(got, ops.mds_encode(g, zt)) for _ in range(16)):
+        raise AssertionError("mds_encode at the verify shape is not bitwise "
+                             "repeatable")
     del g, zt, got, want
     torch.cuda.empty_cache()
 

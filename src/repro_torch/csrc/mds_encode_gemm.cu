@@ -25,32 +25,36 @@
 // that bound, so it needs the tensor cores too.
 //
 // Design (double): mma.sync.aligned.m16n8k8.row.col.f64 (DMMA; one of the
-// m16n8k* shapes that sm_90 adds to sm_80's m8n8k4).  A 4-stage ring of
-// BK = 16 slabs of G (Gs[m][k]) and A (As[k][n]) fills through cp.async,
-// one __syncthreads a slab.  Lane (g, t) reads its fragments with 8-byte
-// loads straight into the mma's operand registers (G: rows g, g + 8 at k
-// slots t, t + 4; A: k slots t, t + 4 at column g) -- 16-byte loads of
-// adjacent k put the values in the wrong registers and ptxas then copies
-// every fragment before each mma.  Shared memory is swizzled so the loads
-// are free of bank conflicts: the 16-byte chunk c of Gs row m sits at
-// c ^ 2 (m & 3), of As row k at c ^ 2 (k & 3) (a half-warp reads 4 rows x
-// 4 consecutive elements).  Two tile configurations (kernels/plan.py picks
-// one from the shape):
-//   wide   (S > 64): 128 x 128 tiles, 8 warps of 64 x 32, one block an SM
-//          (the 64 accumulators a thread fill half the register file); a
-//          warp loads all of a k-step's fragments, then issues its 16 mmas;
-//   skinny (S <= 64): 128 x 64 tiles, 4 warps of 32 x 64 of which only the
-//          ceil(S / 8) live n8 tiles are computed, two blocks an SM; a warp
-//          holds its G fragments and streams A's one n8 tile at a time.
-//          K is split deterministically until the grid has at least two
-//          blocks an SM, so the whole stream of G stays in flight while the
-//          right operand (1e4 x 50 doubles, 4 MB) is read from L2.
+// m16n8k* shapes that sm_90 adds to sm_80's m8n8k4), warp-specialized.  A
+// producer warpgroup fills a 4-stage ring of BK = 16 slabs of G and A --
+// with TMA (one thread, two tensor maps, zero fill past the edges) when the
+// operands' bases and strides are 16-byte aligned, else with masked 8-byte
+// cp.async copies into the same layout -- and hands each stage to the mma
+// warps through mbarriers, so they issue no copies and meet no block-wide
+// barrier; setmaxnreg moves the producers' registers to them (at most two
+// warps an SM sub-partition fit the 64 float64 accumulators a thread of the
+// wide tiling, and one warp alone does not keep an FP64 tensor pipe busy,
+// so every instruction taken off the mma warps counts).  Lane (g, t) reads
+// its fragments with 8-byte loads straight into the mma's operand
+// registers (16-byte loads of adjacent k make ptxas copy every fragment
+// before each mma); the k of each mma slot is chosen so that those loads
+// are free of bank conflicts under TMA's 128-byte swizzle (kslot below).
+// Two tile configurations (kernels/plan.py picks one from the shape):
+//   wide   (S > 64): 128 x 128 tiles, 8 mma warps of 64 x 32, one block an
+//          SM; a warp loads all of a k-step's fragments, then issues its
+//          16 mmas;
+//   skinny (S <= 64): 128 x 64 tiles, 4 mma warps of 32 x 64 of which only
+//          the ceil(S / 8) live n8 tiles are computed, two blocks an SM; a
+//          warp holds its G fragments and streams A's one n8 tile at a
+//          time.  K is split deterministically until the grid has at least
+//          two blocks an SM, so the whole stream of G stays in flight while
+//          the right operand (1e4 x 50 doubles, 4 MB) is read from L2.
 // (Each loop order was the faster of the two at its shape.)  Blocks walk
 // output tiles in groups of eight tile rows (blocks resident together
 // share panels of G and A in L2).  Each output element is a float64 sum of
-// exact float64 products in another order than a sequential loop.  Ragged
-// edges are masked; operands whose rows or base are not 16-byte aligned
-// take the same pipeline with 8-byte copies.
+// exact float64 products in another order than a sequential loop.
+#include <cuda.h>
+
 #include "gemm_common.cuh"
 #include "sgemm.cuh"
 
@@ -68,95 +72,178 @@ __device__ __forceinline__ void dmma_16x8x8(double (&c)[4],
       : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
 }
 
-template <int BM, int BN, int WM, int WN>
+__device__ __forceinline__ unsigned saddr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ double lds64(unsigned addr) {
+  double v;
+  asm volatile("ld.shared.f64 %0, [%1];\n" : "=d"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void mb_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(saddr(bar)),
+               "r"(count));
+}
+__device__ __forceinline__ void mb_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\tmbarrier.arrive.shared.b64 st, [%0];\n\t}\n"
+      ::"r"(saddr(bar)) : "memory");
+}
+// the producer's arrival, announcing `bytes` of TMA traffic to come
+__device__ __forceinline__ void mb_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\t"
+      "mbarrier.arrive.expect_tx.shared.b64 st, [%0], %1;\n\t}\n"
+      ::"r"(saddr(bar)), "r"(bytes) : "memory");
+}
+// an arrival once this thread's earlier cp.async copies have landed
+__device__ __forceinline__ void mb_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n"
+               ::"r"(saddr(bar)) : "memory");
+}
+__device__ __forceinline__ void mb_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n\t.reg .pred P1;\n\tLAB_WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared.b64 P1, [%0], %1;\n\t"
+      "@P1 bra DONE;\n\tbra LAB_WAIT;\n\tDONE:\n\t}\n"
+      ::"r"(saddr(bar)), "r"(parity) : "memory");
+}
+// one TMA box of a 3-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(saddr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+        "r"(saddr(bar)), "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
+template <int BM, int BN, int WM, int WN, int MIN_BLOCKS>
 struct Tiles {
   static constexpr int WARPS_N = BN / WN;
-  static constexpr int THREADS = 32 * (BM / WM) * WARPS_N;
+  static constexpr int CONSUMERS = 32 * (BM / WM) * WARPS_N;  // mma threads
+  static constexpr int THREADS = CONSUMERS + 128;   // + producer warpgroup
   static constexpr int MT = WM / 16, NT = WN / 8;
-  static constexpr int G_TILE = BM * BK, A_TILE = BK * BN;
-  static constexpr int STAGE = G_TILE + A_TILE;             // doubles
-  static constexpr int SMEM_BYTES = STAGES * STAGE * 8;
-  static_assert(BN % 16 == 0, "As swizzle needs 8-chunk groups");
-  static_assert((G_TILE / 2) % THREADS == 0 && (A_TILE / 2) % THREADS == 0,
-                "whole chunks per thread");
+  static constexpr int G_BYTES = BM * BK * 8, A_BYTES = BK * BN * 8;
+  static constexpr int STAGE_BYTES = G_BYTES + A_BYTES;
+  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + align
+  // The launch grants REGS registers a thread; the producer warpgroup keeps
+  // PRODUCER_REGS and hands the rest of its share to the mma warps.
+  static constexpr int REGS = 65536 / (THREADS * MIN_BLOCKS) / 8 * 8;
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS =
+      (THREADS * REGS - 128 * PRODUCER_REGS) / CONSUMERS / 8 * 8;
+  static_assert(CONSUMERS % 128 == 0, "setmaxnreg acts on warpgroups");
+  static_assert(CONSUMER_REGS <= 256, "no more than 256 registers");
+  static_assert(BN % 16 == 0, "A arrives in boxes of 16 columns");
 };
 
-// offsets (in doubles) of element (m, k) of Gs and (k, n) of As
-__device__ __forceinline__ int gs_at(int m, int k) {
-  return m * BK + 2 * ((k >> 1) ^ (2 * (m & 3))) + (k & 1);
+// Byte offsets in a stage of element (m, k) of its G tile and (k, n) of its
+// A tile, as TMA's 128-byte swizzle lays them out: the 16-byte chunk c of a
+// 128-byte row r sits at c ^ (r % 8); A arrives as BN / 16 boxes of 16
+// columns.  (Written with m & 7 and k & 7 apart: the fragment rows' m & 7
+// is the lane's g, which the compiler then folds; the equivalent
+// ((k >> 1) ^ m) & 7 measured slower.)
+__device__ __forceinline__ int g_off(int m, int k) {
+  return m * 128 + (((k >> 1) ^ (m & 7)) << 4) + ((k & 1) << 3);
 }
-template <int BN>
-__device__ __forceinline__ int as_at(int k, int n) {
-  return k * BN + 2 * ((n >> 1) ^ (2 * (k & 3))) + (n & 1);
+__device__ __forceinline__ int a_off(int k, int n) {
+  return (n >> 4) * (16 * BK * 8) + k * 128 +
+         ((((n & 15) >> 1) ^ (k & 7)) << 4) + ((n & 1) << 3);
 }
 
-template <int BM, int BN, int WM, int WN, int MIN_BLOCKS, int VEC>
-__global__ void __launch_bounds__(Tiles<BM, BN, WM, WN>::THREADS, MIN_BLOCKS)
-dgemm_kernel(const double* __restrict__ G, long long g_bstride, int ldg,
+// The k of mma slot t (lo) and t + 4 (hi) in k-step kk of a slab.  Each
+// group of four k differs in bits 1-2 (the A reads of a half-warp, rows k
+// at one column pair, hit distinct chunks) and in bits 0 and 3 (the G
+// reads, rows g = 0..3 at k, hit distinct chunks and halves): {0, 3, 12,
+// 15}, {1, 2, 13, 14}, {4, 7, 8, 11}, {5, 6, 9, 10}.
+__device__ __forceinline__ int kslot(int kk, bool hi, int t) {
+  const int a = t & 1, c = t >> 1;
+  return kk == 0 ? (hi ? 1 + a + 12 * c : 3 * a + 12 * c)
+                 : (hi ? 5 + a + 4 * c : 4 + 3 * a + 4 * c);
+}
+
+// C (+ slab z) = G_b rows [row0, row0 + BM) @ A_b, one output tile a block.
+// Warps 0 .. CONSUMERS/32 - 1 run the mmas; the last warpgroup fills the
+// ring: with TMA (one thread, two tensor maps) when the operands allow it,
+// else every producer thread with masked 8-byte cp.async copies into the
+// same swizzled layout.  Stage s is handed over through mbarriers full[s]
+// (filled) and empty[s] (read by every mma thread): no block-wide barrier
+// inside the loop.
+template <int BM, int BN, int WM, int WN, int MIN_BLOCKS, bool TMA>
+__global__ void __launch_bounds__(Tiles<BM, BN, WM, WN, MIN_BLOCKS>::THREADS,
+                                  MIN_BLOCKS)
+dgemm_kernel(const __grid_constant__ CUtensorMap tG,
+             const __grid_constant__ CUtensorMap tA,
+             const double* __restrict__ G, long long g_bstride, int ldg,
              const double* __restrict__ A, long long a_bstride, int lda,
              double* __restrict__ C, long long c_bstride,
              long long c_zstride, int ldc, int M, int N, int K, int batch,
              int k_span) {
-  using T = Tiles<BM, BN, WM, WN>;
-  extern __shared__ __align__(16) double dsm[];
+  using T = Tiles<BM, BN, WM, WN, MIN_BLOCKS>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  // the swizzle pattern repeats every 1024 bytes: align the ring to it
+  unsigned char* ring = smem + ((1024 - (saddr(smem) & 1023)) & 1023);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp / T::WARPS_N, wn = warp % T::WARPS_N;
   const int b = blockIdx.z % batch, z = blockIdx.z / batch;
-  G += b * g_bstride;
-  A += b * a_bstride;
-  C += b * c_bstride + z * c_zstride;
   int tm, tn;
   gemm::grouped_tile<GROUP_M>(tm, tn);
   const int row0 = tm * BM, col0 = tn * BN;
   const int k_begin = z * k_span, k_end = min(K, k_begin + k_span);
   const int n_slabs = (k_end - k_begin + BK - 1) / BK;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mb_init(&full[s], TMA ? 1 : 128);
+      mb_init(&empty[s], T::CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  auto load = [&](int slot, int kt) {
-    double* Gs = dsm + slot * T::STAGE;
-    double* As = Gs + T::G_TILE;
-    const int k0 = k_begin + kt * BK;
-    if constexpr (VEC == 16) {
+  if (tid >= T::CONSUMERS) {                          // the producers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 ::"n"(T::PRODUCER_REGS));
+    const int p = tid - T::CONSUMERS;
+    if (TMA && p != 0) return;
+    const double* Gb = G + b * g_bstride;
+    const double* Ab = A + b * a_bstride;
+    for (int kt = 0; kt < n_slabs; ++kt) {
+      const int s = kt % STAGES, k0 = k_begin + kt * BK;
+      unsigned char* st = ring + s * T::STAGE_BYTES;
+      if (kt >= STAGES) mb_wait(&empty[s], (kt / STAGES - 1) & 1);
+      if constexpr (TMA) {
+        mb_expect_tx(&full[s], T::STAGE_BYTES);
+        tma_load(st, &tG, &full[s], k0, row0, g_bstride ? b : 0);
 #pragma unroll
-      for (int q = 0; q < T::G_TILE / 2 / T::THREADS; ++q) {
-        const unsigned e = tid + q * T::THREADS;
-        const int m = e / (BK / 2), k = 2 * (e % (BK / 2));
-        const int gr = row0 + m, gk = k0 + k;
-        const bool ok = gr < M && gk < k_end;
-        gemm::cp_async<16>(Gs + gs_at(m, k),
-                           ok ? G + (size_t)gr * ldg + gk : G, ok ? 16 : 0);
-      }
-#pragma unroll
-      for (int q = 0; q < T::A_TILE / 2 / T::THREADS; ++q) {
-        const unsigned e = tid + q * T::THREADS;
-        const int k = e / (BN / 2), n = 2 * (e % (BN / 2));
-        const int gk = k0 + k, gc = col0 + n;
-        const bool ok = gk < k_end && gc < N;
-        gemm::cp_async<16>(As + as_at<BN>(k, n),
-                           ok ? A + (size_t)gk * lda + gc : A, ok ? 16 : 0);
-      }
-    } else {
-#pragma unroll
-      for (int q = 0; q < T::G_TILE / T::THREADS; ++q) {
-        const unsigned e = tid + q * T::THREADS;
-        const int m = e / BK, k = e % BK;
-        const int gr = row0 + m, gk = k0 + k;
-        const bool ok = gr < M && gk < k_end;
-        gemm::cp_async<8>(Gs + gs_at(m, k),
-                          ok ? G + (size_t)gr * ldg + gk : G, ok ? 8 : 0);
-      }
-#pragma unroll
-      for (int q = 0; q < T::A_TILE / T::THREADS; ++q) {
-        const unsigned e = tid + q * T::THREADS;
-        const int k = e / BN, n = e % BN;
-        const int gk = k0 + k, gc = col0 + n;
-        const bool ok = gk < k_end && gc < N;
-        gemm::cp_async<8>(As + as_at<BN>(k, n),
-                          ok ? A + (size_t)gk * lda + gc : A, ok ? 8 : 0);
+        for (int nb = 0; nb < BN / 16; ++nb)
+          tma_load(st + T::G_BYTES + nb * 16 * BK * 8, &tA, &full[s],
+                   col0 + 16 * nb, k0, b);
+      } else {
+        for (int e = p; e < BM * BK; e += 128) {
+          const int gr = row0 + e / BK, gk = k0 + e % BK;
+          const bool ok = gr < M && gk < k_end;
+          gemm::cp_async<8>(st + g_off(e / BK, e % BK),
+                            ok ? Gb + (size_t)gr * ldg + gk : Gb, ok ? 8 : 0);
+        }
+        for (int e = p; e < BK * BN; e += 128) {
+          const int gk = k0 + e / BN, gc = col0 + e % BN;
+          const bool ok = gk < k_end && gc < N;
+          gemm::cp_async<8>(st + T::G_BYTES + a_off(e / BN, e % BN),
+                            ok ? Ab + (size_t)gk * lda + gc : Ab, ok ? 8 : 0);
+        }
+        mb_arrive_cp_async(&full[s]);
       }
     }
-  };
+    if constexpr (!TMA) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
 
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               ::"n"(T::CONSUMER_REGS));
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp / T::WARPS_N, wn = warp % T::WARPS_N;
   // n8 tiles of this warp with at least one column inside N (warp-uniform)
   const int n_live = min(T::NT, max(0, (N - col0 - wn * WN + 7) / 8));
   double acc[T::MT][T::NT][4];
@@ -167,35 +254,27 @@ dgemm_kernel(const double* __restrict__ G, long long g_bstride, int ldg,
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.0;
 
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_slabs) load(s, s);
-    gemm::cp_async_commit();
-  }
   for (int kt = 0; kt < n_slabs; ++kt) {
-    gemm::cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int next = kt + STAGES - 1;
-    if (next < n_slabs) load(next % STAGES, next);
-    gemm::cp_async_commit();
-    const double* Gs = dsm + (kt % STAGES) * T::STAGE;
-    const double* As = Gs + T::G_TILE;
+    const int s = kt % STAGES;
+    mb_wait(&full[s], (kt / STAGES) & 1);
+    const unsigned gs = saddr(ring + s * T::STAGE_BYTES);
+    const unsigned as = gs + T::G_BYTES;
 #pragma unroll
     for (int kk = 0; kk < BK / 8; ++kk) {
-      const int k = 8 * kk + t;               // this lane's k slots: k, k + 4
-      // G fragment of m16 tile i: (g, k), (g + 8, k), (g, k + 4), (g + 8,
-      // k + 4); A fragment of n8 tile j: (k, g), (k + 4, g)
+      const int klo = kslot(kk, false, t), khi = kslot(kk, true, t);
+      // G fragment of m16 tile i: (g, lo), (g + 8, lo), (g, hi), (g + 8, hi);
+      // A fragment of n8 tile j: (lo, g), (hi, g)
       auto g_frag = [&](int i, double (&a)[4]) {
         const int r = wm * WM + i * 16 + g;
-        a[0] = Gs[gs_at(r, k)];
-        a[1] = Gs[gs_at(r + 8, k)];
-        a[2] = Gs[gs_at(r, k + 4)];
-        a[3] = Gs[gs_at(r + 8, k + 4)];
+        a[0] = lds64(gs + g_off(r, klo));
+        a[1] = lds64(gs + g_off(r + 8, klo));
+        a[2] = lds64(gs + g_off(r, khi));
+        a[3] = lds64(gs + g_off(r + 8, khi));
       };
-      auto a_frag = [&](int j, double (&b)[2]) {
+      auto a_frag = [&](int j, double (&f)[2]) {
         const int n = wn * WN + j * 8 + g;
-        b[0] = As[as_at<BN>(k, n)];
-        b[1] = As[as_at<BN>(k + 4, n)];
+        f[0] = lds64(as + a_off(klo, n));
+        f[1] = lds64(as + a_off(khi, n));
       };
       double af[T::MT][4];
 #pragma unroll
@@ -211,11 +290,11 @@ dgemm_kernel(const double* __restrict__ G, long long g_bstride, int ldg,
             for (int i = 0; i < T::MT; ++i) dmma_16x8x8(acc[i][j], af[i], bf);
           }
       } else {
-        // wide: every fragment of the step first, then its mmas
+        // wide: every fragment of the step first (unpredicated: a dead
+        // tile's loads read the zero-filled ring), then its mmas
         double bf[T::NT][2];
 #pragma unroll
-        for (int j = 0; j < T::NT; ++j)
-          if (j < n_live) a_frag(j, bf[j]);
+        for (int j = 0; j < T::NT; ++j) a_frag(j, bf[j]);
 #pragma unroll
         for (int j = 0; j < T::NT; ++j)
           if (j < n_live)
@@ -224,8 +303,13 @@ dgemm_kernel(const double* __restrict__ G, long long g_bstride, int ldg,
               dmma_16x8x8(acc[i][j], af[i], bf[j]);
       }
     }
+    // the stage's next fill comes from the async proxy (TMA): order this
+    // thread's shared reads of it before that, then release it
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mb_arrive(&empty[s]);
   }
 
+  C += b * c_bstride + z * c_zstride;
 #pragma unroll
   for (int i = 0; i < T::MT; ++i)
 #pragma unroll
@@ -242,12 +326,52 @@ dgemm_kernel(const double* __restrict__ G, long long g_bstride, int ldg,
     }
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 3-D float64 tensor (d0 innermost; row strides s1, s2 in elements) read
+// in boxes of b0 x b1 x 1 with the 128-byte swizzle; elements outside the
+// tensor arrive as zeros.
+bool tensor_map(CUtensorMap* map, const double* base, long long d0,
+                long long d1, long long d2, long long s1, long long s2,
+                int b0, int b1) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)s1 * 8, (cuuint64_t)s2 * 8};
+  const cuuint32_t box[3] = {(cuuint32_t)b0, (cuuint32_t)b1, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT64, 3,
+            const_cast<double*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int BM, int BN, int WM, int WN, int MIN_BLOCKS>
 int dgemm(const double* G, long long g_bstride, int ldg, const double* A,
           long long a_bstride, int lda, double* C, long long c_bstride,
           int ldc, double* ws, int M, int N, int K, int batch, int splits,
           int k_span, cudaStream_t st) {
-  using T = Tiles<BM, BN, WM, WN>;
+  using T = Tiles<BM, BN, WM, WN, MIN_BLOCKS>;
   if (!gemm::plan_ok(K, splits, k_span, BK))
     return (int)cudaErrorInvalidValue;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch * splits);
@@ -256,17 +380,23 @@ int dgemm(const double* G, long long g_bstride, int ldg, const double* A,
   double* out = splits > 1 ? ws : C;
   const long long o_bstride = splits > 1 ? (long long)M * N : c_bstride;
   const int o_ld = splits > 1 ? N : ldc;
-  // 16-byte copies need every row start and base 16-byte aligned
-  const bool vec = gemm::aligned16(G) && gemm::aligned16(A) && K % 2 == 0 &&
-                   N % 2 == 0 && ldg % 2 == 0 && lda % 2 == 0 &&
-                   g_bstride % 2 == 0 && a_bstride % 2 == 0;
-  auto kern = vec ? dgemm_kernel<BM, BN, WM, WN, MIN_BLOCKS, 16>
-                  : dgemm_kernel<BM, BN, WM, WN, MIN_BLOCKS, 8>;
+  // TMA needs 16-byte aligned bases and row and task strides
+  const bool tma = gemm::aligned16(G) && gemm::aligned16(A) &&
+                   ldg % 2 == 0 && lda % 2 == 0 && g_bstride % 2 == 0 &&
+                   a_bstride % 2 == 0;
+  CUtensorMap mg{}, ma{};
+  if (tma && !(tensor_map(&mg, G, K, M, g_bstride ? batch : 1, ldg,
+                          g_bstride ? g_bstride : (long long)ldg * M, BK,
+                          BM) &&
+               tensor_map(&ma, A, N, K, batch, lda, a_bstride, 16, BK)))
+    return (int)cudaErrorInvalidValue;
+  auto kern = tma ? dgemm_kernel<BM, BN, WM, WN, MIN_BLOCKS, true>
+                  : dgemm_kernel<BM, BN, WM, WN, MIN_BLOCKS, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   kern<<<grid, T::THREADS, T::SMEM_BYTES, st>>>(
-      G, g_bstride, ldg, A, a_bstride, lda, out, o_bstride,
+      mg, ma, G, g_bstride, ldg, A, a_bstride, lda, out, o_bstride,
       (long long)M * N * batch, o_ld, M, N, K, batch, k_span);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;

@@ -47,11 +47,12 @@ CONFIGS = {
     # float32 SIMT (sgemm.cuh): 128 x 128 tiles, 8 x 8 a thread, 4-stage
     # cp.async ring of BK = 32
     "sgemm": TileConfig("sgemm", 0, "f32", 128, 128, 32, 256, 1),
-    # float64 DMMA (mma.sync m16n8k8): 128 x 128 tiles, warp tiles 64 x 32
-    "dgemm_wide": TileConfig("dgemm_wide", 1, "f64", 128, 128, 16, 256, 1),
-    # float64 DMMA for S <= 64 columns: 128-row tiles, warp tiles 32 x 64
-    # of which only ceil(S / 8) n8 tiles are computed
-    "dgemm_skinny": TileConfig("dgemm_skinny", 2, "f64", 128, 64, 16, 128,
+    # float64 DMMA (mma.sync m16n8k8): 128 x 128 tiles, 8 mma warps of
+    # 64 x 32 and a producer warpgroup
+    "dgemm_wide": TileConfig("dgemm_wide", 1, "f64", 128, 128, 16, 384, 1),
+    # float64 DMMA for S <= 64 columns: 128-row tiles, 4 mma warps of
+    # 32 x 64 (only ceil(S / 8) n8 tiles computed) and a producer warpgroup
+    "dgemm_skinny": TileConfig("dgemm_skinny", 2, "f64", 128, 64, 16, 256,
                                2),
 }
 
