@@ -19,10 +19,14 @@ exits non-zero):
      its time (CUDA events, median), the plain version's time, a one-call
      PyTorch yardstick where one exists (for ``mds_encode`` also the same
      work: the parity rows alone), and the least time the card could take
-     (bytes over HBM rate, or operations over the peak of their type); the
-     launch plan (tiles, grid, K slabs) of each GEMM configuration; and the
-     two GEMM kernels against their plain versions at ragged, unaligned
-     and split-K edge shapes;
+     (bytes over HBM rate, or operations over the peak of their type), and
+     where the wrapper's host work is not small beside the kernel, the
+     time of calls queued back to back; the launch plan (tiles, grid, K
+     slabs; coded_matvec's route, grid and rows a block) of each shape;
+     the SM clock and power beside ``matmul`` and its library call; the
+     GEMM kernels and ``coded_matvec`` against their plain versions at
+     ragged, unaligned and split-K edge shapes, and repeated calls of
+     each at its main shapes bit-equal;
   d. uncoded serving of llama3.2-1b at its published widths (bf16):
      prefill and decode tokens/s;
   e. coded serving of llama3.2-1b at its published widths: head scope,
@@ -242,6 +246,11 @@ def phase_c(dev) -> dict:
           f"{err32:.3e} against its plain version", flush=True)
     got = ops.coded_shard_matmul_batch(tiles, x).reshape(-1, BATCH)
     want = ref.coded_matvec_ref(flat, x, out_dtype=torch.float64)
+    print_matvec_plan("serving shape", flat, x)
+    # the rows of a sum are fixed in order: every call gives the same bits
+    repeat_equal("coded_matvec at the serving shape", got,
+                 lambda: ops.coded_shard_matmul_batch(tiles, x).reshape(
+                     -1, BATCH))
     report("coded_matvec", "src/repro_torch/csrc/coded_matvec.cu",
            "src/repro/kernels/coded_matvec.py:38",
            max_err(got, want), 1e-12 * (1 + float(want.abs().max())),
@@ -250,7 +259,10 @@ def phase_c(dev) -> dict:
                                                 out_dtype=torch.float64)),
            time_ms(lambda: torch.matmul(flat, x)),
            bound(4.0 * (n * D + D * BATCH) + 8.0 * n * BATCH,
-                 [2.0 * n * D * BATCH / F64_FLOP_PER_S]))
+                 [2.0 * n * D * BATCH / F64_FLOP_PER_S]),
+           queued_ms=time_queued_ms(
+               lambda: ops.coded_shard_matmul_batch(tiles, x)),
+           library_queued_ms=time_queued_ms(lambda: torch.matmul(flat, x)))
     del tiles, flat, got, want, got32
 
     # -- coded_matvec, batched: the executor's 4 x (2L x L) . (L,) float64 -
@@ -263,17 +275,31 @@ def phase_c(dev) -> dict:
     want = ref.coded_matvec_batch_ref(at, xb)
     err = max_err(got, want)
     tol = 1e-12 * (1 + float(want.abs().max()))
+    print_matvec_plan("batched executor shape", at, xb[..., None])
+    repeat_equal("batched coded_matvec", got,
+                 lambda: ops.coded_matvec_batch(at, xb))
     ms = time_ms(lambda: ops.coded_matvec_batch(at, xb))
     plain_ms = time_ms(lambda: ref.coded_matvec_batch_ref(at, xb))
     lib_ms = time_ms(lambda: torch.matmul(at, xb[..., None]))
+    # queued back to back: the device time a call once the wrapper's host
+    # work overlaps the previous call's kernel; single minus queued is the
+    # host work a call
+    q_ms = time_queued_ms(lambda: ops.coded_matvec_batch(at, xb))
+    q_lib_ms = time_queued_ms(lambda: torch.matmul(at, xb[..., None]))
     bnd = bound(8.0 * (B4 * 2 * Lp * Lp + B4 * Lp + B4 * 2 * Lp),
                 [2.0 * B4 * 2 * Lp * Lp / F64_FLOP_PER_S])
     print(f"[c] coded_matvec batched 4 x ({2 * Lp} x {Lp}) . ({Lp},) "
           f"float64: max_abs_err={err:.3e} (tol {tol:.3e}) kernel "
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, "
-          f"bound {bnd[0]:.3f} ms ({bnd[1]})", flush=True)
+          f"bound {bnd[0]:.3f} ms ({bnd[1]}); queued back to back: kernel "
+          f"{q_ms:.3f} ms, library {q_lib_ms:.3f} ms; host work a call: "
+          f"kernel {(ms - q_ms) * 1e3:.1f} us, library "
+          f"{(lib_ms - q_lib_ms) * 1e3:.1f} us", flush=True)
     if err > tol:
         raise AssertionError(f"batched coded_matvec disagrees ({err})")
+    rows["coded_matvec"]["batched"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd[0],
+        max_abs_err=err, queued_ms=q_ms, library_queued_ms=q_lib_ms)
     # wider than one 8-column chunk: one counted launch per chunk
     from repro_torch.kernels import coded_matvec as cmv
     a12 = at[0, :4096]
@@ -287,6 +313,8 @@ def phase_c(dev) -> dict:
     if cmv.LAUNCHES - n0 != 2 or err12 > tol:
         raise AssertionError("coded_matvec over two column chunks")
     del at, xb, got, want, a12, x12
+    torch.cuda.empty_cache()
+    coded_matvec_edge_sweep(dev)
 
     # -- mds_encode: the executor's 4 x parity (L x L) @ (L x L) float64 ----
     sq = float(np.sqrt(Lp))
@@ -338,7 +366,11 @@ def phase_c(dev) -> dict:
                   f"{bnd[0]:.3f} ms ({bnd[1]})", flush=True)
             if err > tol:
                 raise AssertionError(f"mds_encode float32 disagrees ({err})")
+            f32_row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           library_parity_ms=par_ms, bound_ms=bnd[0],
+                           max_abs_err=err)
         del g, a
+    rows["mds_encode"]["float32"] = f32_row
     del A
     torch.cuda.empty_cache()
 
@@ -448,12 +480,22 @@ def phase_c(dev) -> dict:
     want = ref.matmul_ref(a, w)
     M, K, N = 256, L_HEAD, D
     print_plan("matmul serving shape", "f32", M, N, K)
+    # split K is summed in a fixed order: every call gives the same bits
+    repeat_equal("matmul at the serving shape", got, lambda: ops.matmul(a, w))
+    ms = time_ms(lambda: ops.matmul(a, w))
+    lib_ms = time_ms(lambda: torch.matmul(a, w))
+    # an FFMA-dense kernel may run below the boost clock (the power limit),
+    # and so may the library's: the SM clock and power over a second of
+    # each, back to back
+    clocks = {k: sample_clocks(f) for k, f in
+              (("kernel", lambda: ops.matmul(a, w)),
+               ("library", lambda: torch.matmul(a, w)))}
+    print(f"[c] matmul clocks over 1 s of calls (nvidia-smi, every 100 ms): "
+          + "; ".join(f"{k}: {v}" for k, v in clocks.items()), flush=True)
     report("matmul", "src/repro_torch/csrc/matmul.cu",
            "src/repro/kernels/matmul.py:38",
-           max_err(got, want), 2e-3 * (1 + float(want.abs().max())),
-           time_ms(lambda: ops.matmul(a, w)),
-           time_ms(lambda: ref.matmul_ref(a, w)),
-           time_ms(lambda: torch.matmul(a, w)),
+           max_err(got, want), 2e-3 * (1 + float(want.abs().max())), ms,
+           time_ms(lambda: ref.matmul_ref(a, w)), lib_ms,
            bound(4.0 * (M * K + K * N + M * N),
                  [2.0 * M * N * K / F32_FLOP_PER_S]))
     del a, w, got, want
@@ -461,6 +503,125 @@ def phase_c(dev) -> dict:
     gemm_edge_sweep(dev)
     wkv6_rows(dev, report)
     return rows
+
+
+def repeat_equal(label: str, first, fn, times: int = 16) -> None:
+    """Raise unless ``times`` more calls of ``fn`` give ``first`` bit for
+    bit."""
+    import torch
+    if not all(torch.equal(first, fn()) for _ in range(times)):
+        raise AssertionError(f"{label} is not bitwise repeatable")
+
+
+def sample_clocks(fn, seconds: float = 1.0) -> str:
+    """Median SM clock and power draw that ``nvidia-smi`` samples every
+    100 ms while ``fn`` runs back to back for ``seconds``."""
+    import torch
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        fn()
+        torch.cuda.synchronize()
+    proc.terminate()
+    out, _ = proc.communicate()
+    samples = []
+    for line in out.splitlines():
+        parts = [v.strip() for v in line.split(",")]
+        try:
+            samples.append((float(parts[0]), float(parts[1])))
+        except (ValueError, IndexError):
+            continue
+    if not samples:
+        return "not measured (no samples)"
+    mhz = sorted(m for m, _ in samples)
+    watts = sorted(w for _, w in samples)
+    return (f"sm {mhz[len(mhz) // 2]:.0f} MHz (range {mhz[0]:.0f}-"
+            f"{mhz[-1]:.0f}), power {watts[len(watts) // 2]:.0f} W, "
+            f"{len(samples)} samples")
+
+
+def print_matvec_plan(label: str, a, x) -> None:
+    """The launch plan of each 8-column chunk coded_matvec runs for ``a``
+    (R, K) or (B, R, K) against ``x`` (K, C) or (B, K, C)."""
+    import torch
+    from repro_torch.kernels.plan import MV_COLS, matvec_plan
+    B = a.shape[0] if a.dim() == 3 else 1
+    R, K = a.shape[-2:]
+    C = x.shape[-1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for c0 in range(0, C, MV_COLS):
+        p = matvec_plan(a.element_size(), R, K, min(MV_COLS, C - c0), B,
+                        sms)
+        waves = p.blocks / (p.blocks_per_sm * sms)
+        print(f"[c] plan coded_matvec {label} (columns {c0}-"
+              f"{c0 + p.cc - 1}): {p.route}, grid {p.grid} = {p.blocks} "
+              f"blocks of {p.threads} threads ({waves:.2f} waves of "
+              f"{p.blocks_per_sm} an SM), {p.rows_per_block} rows a block, "
+              f"X slab {p.slab_bytes} B", flush=True)
+
+
+#: phase c's coded_matvec edge shapes: (B, R, K, C) -- ragged R (not a
+#: multiple of any block's rows), K of 2, 6 and 10 002 (padded to the
+#: 16-byte vector as ops pads it), C across the 8-column chunks
+MATVEC_EDGES = ((1, 1237, 2, 1), (4, 1237, 6, 3), (1, 4099, 10002, 1),
+                (4, 777, 10002, 8), (1, 3001, 6, 9), (4, 555, 2, 12),
+                (1, 20011, 10002, 3), (4, 1, 6, 1))
+
+
+def coded_matvec_edge_sweep(dev) -> None:
+    """coded_matvec against its plain version at ragged shapes, in all
+    three type pairs and both routes: float64 outputs at 1e-12, float32
+    outputs at 2e-3 (the reference's kernel tolerance), relative to 1 +
+    max |want|; every call repeated bit for bit."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.coded_matvec import coded_matvec_cuda
+    from repro_torch.kernels.plan import MV_COLS, matvec_plan
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t0 = time.perf_counter()
+    routes, worst, n = set(), {}, 0
+    for B, R, K, C in MATVEC_EDGES:
+        for ti, to in ((torch.float32, torch.float32),
+                       (torch.float32, torch.float64),
+                       (torch.float64, torch.float64)):
+            vec = 16 // torch.tensor([], dtype=ti).element_size()
+            Kp = -(-K // vec) * vec
+            a = torch.zeros((B, R, Kp), device=dev, dtype=ti)
+            x = torch.zeros((B, Kp, C), device=dev, dtype=ti)
+            a[..., :K] = torch.randn((B, R, K), generator=gen, device=dev,
+                                     dtype=ti)
+            x[:, :K] = torch.randn((B, K, C), generator=gen, device=dev,
+                                   dtype=ti)
+            if B == 1:
+                a, x = a[0], x[0]
+            got = coded_matvec_cuda(a, x, out_dtype=to)
+            want = ref.coded_matvec_ref(a, x, out_dtype=to)
+            rel = 1e-12 if to == torch.float64 else 2e-3
+            err = max_err(got, want)
+            tol = rel * (1 + float(want.abs().max()))
+            tag = (f"coded_matvec B {B} R {R} K {K} C {C} "
+                   f"{str(ti).split('.')[-1]} -> {str(to).split('.')[-1]}")
+            if err > tol or got.shape != want.shape:
+                raise AssertionError(f"{tag}: disagrees ({err} > {tol})")
+            repeat_equal(tag, got,
+                         lambda: coded_matvec_cuda(a, x, out_dtype=to), 2)
+            kind = f"{str(ti).split('.')[-1]} -> {str(to).split('.')[-1]}"
+            worst[kind] = max(worst.get(kind, 0.0), err / tol)
+            routes |= {matvec_plan(a.element_size(), R, Kp,
+                                   min(MV_COLS, C - c0), B, sms).route
+                       for c0 in range(0, C, MV_COLS)}
+            n += 1
+    torch.cuda.synchronize()
+    if routes != {"staged", "direct"}:
+        raise AssertionError(f"coded_matvec edge sweep took only {routes}")
+    print(f"[c] coded_matvec edge sweep: {n} shapes x types on both routes "
+          f"agree with the plain version (largest err / tol "
+          f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} }) and repeat "
+          f"bit for bit, in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def print_plan(label: str, dtype: str, M: int, N: int, K: int,
@@ -1094,7 +1255,8 @@ def main() -> int:
     print(f"[i] total {time.perf_counter() - t_start:.1f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library_parity_ms", "verify")
+            "library_ms", "queued_ms", "library_queued_ms",
+            "library_parity_ms", "batched", "float32", "verify")
     print(json.dumps({"kernels": [{k: rows[n][k] for k in keys
                                    if k in rows[n]}
                                   for n in ("matmul", "coded_matvec",

@@ -15,7 +15,10 @@
 // half-warps broadcast) and, per k, two float4 of B (a quarter-warp reads
 // 128 contiguous bytes): 4 shared loads per 64 FMAs, no bank conflicts.
 // One block an SM (128 KB of ring, up to 255 registers): measured faster
-// than two blocks held to 128 registers or than BK = 8 or 16.
+// than two blocks held to 128 registers or than BK = 8 or 16, than A
+// transposed in shared memory at two blocks an SM, and than a ring fed by
+// a producer warp or warpgroup (those spilled); fragments double-buffered
+// in registers were no faster beyond the spread (PERF.md).
 // VEC = 16 copies 16-byte chunks (every row start and base 16-byte
 // aligned); VEC = 4 copies single floats -- ragged or unaligned operands
 // take the same pipeline with masked 4-byte copies.

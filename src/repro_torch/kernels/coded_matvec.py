@@ -2,8 +2,9 @@
 ``repro.kernels.coded_matvec.coded_matvec_pallas``, with an optional task
 axis (the reference's ``vmap`` of it in ``ops.coded_matvec_batch``).
 
-The CUDA kernel is ``csrc/coded_matvec.cu`` (design notes there).  On a
-CPU tensor :func:`coded_matvec` runs the plain version; on a CUDA tensor it
+The CUDA kernel is ``csrc/coded_matvec.cu`` (design notes there), launched
+on the plan of :func:`repro_torch.kernels.plan.matvec_plan`.  On a CPU
+tensor :func:`coded_matvec` runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
 
 Types: float32 in → float32 out (the reference's numerics), float32 in →
@@ -17,7 +18,8 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._launch import I, P, check_cuda, raise_on_error, stream_ptr
+from ._launch import I, P, check_cuda, raise_on_error, sm_count, stream_ptr
+from .plan import MV_COLS, matvec_plan
 from .ref import coded_matvec_ref
 
 __all__ = ["coded_matvec", "coded_matvec_cuda", "LAUNCHES"]
@@ -34,7 +36,8 @@ _TYPES = {(torch.float32, torch.float32): 0,
 def _lib():
     lib = _build.library("coded_matvec")
     if not getattr(lib, "_typed", False):
-        lib.repro_coded_matvec.argtypes = [I, P, P, P, I, I, I, I, I, P]
+        lib.repro_coded_matvec.argtypes = [I, P, P, P, I, I, I, I, I, I, I,
+                                           I, I, I, P]
         lib.repro_coded_matvec.restype = I
         lib._typed = True
     return lib
@@ -45,8 +48,9 @@ def coded_matvec_cuda(a: torch.Tensor, x: torch.Tensor, *,
                       ) -> torch.Tensor:
     """Y = A @ X on the card: ``a`` (R, K) with ``x`` (K, C), or ``a``
     (B, R, K) with ``x`` (B, K, C), one launch per 8 columns of X (the
-    task axis is in the grid).  ``out_dtype`` defaults to the input dtype;
-    K must be a multiple of the 16-byte vector width."""
+    task axis is in the grid), each on its :func:`matvec_plan`.
+    ``out_dtype`` defaults to the input dtype; K must be a multiple of the
+    16-byte vector width."""
     global LAUNCHES
     dev = a.device
     out_dtype = a.dtype if out_dtype is None else out_dtype
@@ -72,10 +76,15 @@ def coded_matvec_cuda(a: torch.Tensor, x: torch.Tensor, *,
                          f"loads)")
     C = x.shape[-1]
     y = torch.empty(a.shape[:-1] + (C,), dtype=out_dtype, device=dev)
-    for c0 in range(0, C, 8):        # one launch per 8-column chunk
-        err = _lib().repro_coded_matvec(types, a.data_ptr(), x.data_ptr(),
-                                        y.data_ptr(), B, R, K, C, c0,
-                                        stream_ptr(dev))
+    if y.numel() == 0:
+        return y
+    fn, st, sms = _lib().repro_coded_matvec, stream_ptr(dev), sm_count(dev)
+    for c0 in range(0, C, MV_COLS):  # one launch per 8-column chunk
+        p = matvec_plan(a.element_size(), R, K, min(MV_COLS, C - c0), B,
+                        sms)
+        err = fn(types, a.data_ptr(), x.data_ptr(), y.data_ptr(), B, R, K, C,
+                 c0, p.route_code, p.grid[0], p.rows_per_block, p.slab_bytes,
+                 p.blocks_per_sm, st)
         raise_on_error("coded_matvec", err)
         LAUNCHES += 1
     return y

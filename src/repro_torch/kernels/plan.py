@@ -1,10 +1,11 @@
-"""Launch plans of the GEMM kernels (``csrc/matmul.cu``,
-``csrc/mds_encode_gemm.cu``): which tile configuration runs a product, its
-grid, and how far K is split.
+"""Launch plans of the port's kernels: the GEMMs (``csrc/matmul.cu``,
+``csrc/mds_encode_gemm.cu``: which tile configuration runs a product, its
+grid, and how far K is split) and the skinny products of
+``csrc/coded_matvec.cu`` (route, grid, rows per block, X slab).
 
 Plain Python, so the CPU tests can check a plan at the path's shapes; the
-C entry points take the plan's ``config``, ``splits`` and ``k_span`` as
-arguments and derive the same grid from them.
+C entry points take the plan's numbers as arguments, check them and derive
+the same grid from them.
 
 A configuration is built for a residency (blocks per SM, set by its
 registers and shared memory).  When a product has fewer than ``2 * sms``
@@ -14,7 +15,9 @@ workspace of ``splits * batch * M * N`` elements and summed in a fixed
 order by a second pass (deterministic, no atomics).  The split count is
 the largest whose grid fits a whole number of waves of resident blocks,
 taking the fewest waves that give at least ``2 * sms`` blocks (or slabs of
-``MIN_K_SPAN``).
+``MIN_K_SPAN``).  One rule serves every dtype: the count whose blocks fill
+their waves best measured 2% faster at the serving matmul (33 slabs for
+12) and slower at the float64 verify encode (10 for 6).
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ import dataclasses
 import functools
 from typing import Tuple
 
-__all__ = ["TileConfig", "GemmPlan", "CONFIGS", "gemm_plan"]
+__all__ = ["TileConfig", "GemmPlan", "CONFIGS", "gemm_plan", "MatvecPlan",
+           "matvec_plan"]
 
 #: no slab shorter than this many K elements (the second pass and the
 #: pipeline's fill cost more than a shorter slab saves)
@@ -112,3 +116,62 @@ def gemm_plan(dtype: str, M: int, N: int, K: int, batch: int = 1,
         else cfg.bn
     return GemmPlan(cfg, (gx, gy, batch * splits), splits, k_span, n_tile,
                     splits * batch * M * N if splits > 1 else 0)
+
+
+# -- coded_matvec (csrc/coded_matvec.cu) ------------------------------------
+#
+# A block of MV_WARPS warps owns a contiguous range of one task's rows and
+# its warps take the range's groups of 2 rows in turn.  "staged": X[:, chunk]
+# whole in shared memory (at most MV_STAGE_MAX bytes); "direct": X read
+# through L1/L2, no shared memory.  The grid is a whole number of waves of
+# MV_BLOCKS_PER_SM blocks an SM (the residency the kernel's launch bounds
+# hold it to) where the rows allow, and every block's rows are within one
+# of the others'.
+
+MV_WARPS = 8
+MV_BLOCKS_PER_SM = 2
+MV_STAGE_MAX = 64 * 1024    # largest X slab the staged route takes, bytes
+MV_COLS = 8                 # columns of X one launch computes
+MV_MIN_ROWS = 16            # fewest rows a block takes (2 a warp)
+
+
+@dataclasses.dataclass(frozen=True)
+class MatvecPlan:
+    route: str              # "staged" | "direct"
+    cc: int                 # columns this launch computes (<= MV_COLS)
+    grid: Tuple[int, int]   # (blocks per task, tasks)
+    rows_per_block: int
+    slab_bytes: int         # the staged X slab (0 when direct)
+    blocks_per_sm: int      # residency the grid is sized for
+    threads: int
+
+    @property
+    def route_code(self) -> int:
+        return 0 if self.route == "staged" else 1
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+
+@functools.lru_cache(maxsize=256)
+def matvec_plan(esz: int, R: int, K: int, C: int, batch: int = 1,
+                sms: int = 132) -> MatvecPlan:
+    """The launch computing ``min(C, 8)`` columns of ``batch`` products
+    (R x K) @ (K x C) with ``esz``-byte inputs (4 or 8) on a card of
+    ``sms`` multiprocessors."""
+    if esz not in (4, 8):
+        raise ValueError(f"matvec_plan: element size {esz}, expected 4 or 8")
+    if min(R, C, batch) <= 0 or K < 0 or K % (16 // esz):
+        raise ValueError(f"matvec_plan: bad shape batch={batch} R={R} K={K} "
+                         f"C={C} (K a multiple of {16 // esz})")
+    cc = min(C, MV_COLS)
+    slab = cc * K * esz
+    staged = slab <= MV_STAGE_MAX
+    slots = MV_BLOCKS_PER_SM * sms
+    per_task = max(1, min(slots // batch, _cdiv(R, MV_MIN_ROWS)))
+    rows = _cdiv(R, per_task)
+    per_task = _cdiv(R, rows)               # no block without rows
+    return MatvecPlan("staged" if staged else "direct", cc, (per_task, batch),
+                      rows, slab if staged else 0, MV_BLOCKS_PER_SM,
+                      32 * MV_WARPS)

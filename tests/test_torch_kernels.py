@@ -356,6 +356,20 @@ def test_gemm_plan_configurations():
         gemm_plan("f16", 8, 8, 8)
 
 
+@pytest.mark.parametrize("label,splits,blocks", [
+    ("matmul serving", 12, 384), ("encode verify", 6, 474),
+    ("verify phase h", 19, 494)])
+def test_gemm_plan_split_rule_at_the_skinny_shapes(label, splits, blocks):
+    """One split rule for every dtype, the one the kernels were measured
+    with: the largest count that fits the fewest whole waves giving two
+    blocks an SM (the serving matmul: 3 waves of 132, 12 blocks short of
+    full; a count that fills waves best measured faster there and slower
+    at the float64 verify encode)."""
+    from repro_torch.kernels.plan import gemm_plan
+    p = gemm_plan(*PLAN_SHAPES[label], sms=132)
+    assert (p.splits, p.blocks) == (splits, blocks)
+
+
 def test_build_target_follows_shared_headers(tmp_path, monkeypatch):
     """A library's hash covers csrc/*.cuh: an edited header rebuilds it."""
     import shutil
@@ -370,3 +384,77 @@ def test_build_target_follows_shared_headers(tmp_path, monkeypatch):
     after = {n: _build._target(n) for n in _build.SOURCES}
     assert after["matmul"] != before["matmul"]
     assert after["mds_encode_gemm"] != before["mds_encode_gemm"]
+
+
+# -- launch plans of coded_matvec (kernels/plan.py) --------------------------
+
+#: (input bytes, R, K, C, batch) at chip_smoke.py's shapes: phase c's
+#: serving tiles (one step's packed head rows against 4 slots), rwkv6-7b's
+#: head, the batched executor shape (also row 2b's verify timing), phase
+#: g's executor products (redundancy ~1.33), phase h's verify products
+#: (verify_cols 4, ~50 tasks), and ragged ones
+MATVEC_SHAPES = {
+    "serving tiles": (4, 128512, 2048, 4, 1),
+    "rwkv6-7b head": (4, 65536, 4096, 4, 1),
+    "batched executor": (8, 20000, 10000, 1, 4),
+    "executor phase g": (8, 13334, 10000, 1, 4),
+    "verify phase h": (8, 10000, 4, 1, 50),
+    "ragged long K": (8, 4099, 10002, 3, 1),
+    "ragged short": (4, 1237, 8, 8, 4),
+    "one row": (8, 1, 2, 1, 4),
+    "many tasks": (8, 300, 2048, 2, 700),
+}
+
+
+@pytest.mark.parametrize("label", sorted(MATVEC_SHAPES))
+def test_matvec_plan_fits_cuda_limits_and_covers_rows(label):
+    """The grid fits CUDA's limits, and the rows per block cover R
+    exactly with no block left empty."""
+    from repro_torch.kernels.plan import MV_STAGE_MAX, matvec_plan
+    esz, R, K, C, B = MATVEC_SHAPES[label]
+    p = matvec_plan(esz, R, K, C, B, sms=132)
+    gx, gy = p.grid
+    assert gy == B and 1 <= gx <= 2 ** 31 - 1 and gy <= 65535
+    assert p.threads <= 1024 and p.cc == min(C, 8)
+    assert gx * p.rows_per_block >= R > (gx - 1) * p.rows_per_block
+    if p.route == "staged":
+        assert p.slab_bytes == p.cc * K * esz <= MV_STAGE_MAX
+    else:
+        assert p.slab_bytes == 0 and p.cc * K * esz > MV_STAGE_MAX
+    # as many blocks as one wave holds, unless the rows or tasks decide
+    assert p.blocks <= max(B, p.blocks_per_sm * 132)
+
+
+@pytest.mark.parametrize("label,route", [("serving tiles", "staged"),
+                                         ("rwkv6-7b head", "staged"),
+                                         ("batched executor", "direct"),
+                                         ("executor phase g", "direct"),
+                                         ("verify phase h", "staged")])
+def test_matvec_plan_routes(label, route):
+    """X staged in shared memory when its slab is small (the serving
+    tiles), read directly for a long K with few columns (the executor)."""
+    from repro_torch.kernels.plan import matvec_plan
+    assert matvec_plan(*MATVEC_SHAPES[label], sms=132).route == route
+
+
+@pytest.mark.parametrize("label", ["batched executor", "executor phase g"])
+def test_matvec_plan_executor_grid_is_whole_waves(label):
+    """The executor's grid is a whole number of resident waves, at least
+    two blocks an SM, and no block holds 1% more rows than the mean (no
+    tail)."""
+    from repro_torch.kernels.plan import matvec_plan
+    p = matvec_plan(*MATVEC_SHAPES[label], sms=132)
+    slots = p.blocks_per_sm * 132
+    assert p.blocks % slots == 0 and p.blocks >= 2 * 132
+    R = MATVEC_SHAPES[label][1]
+    assert p.rows_per_block < 1.01 * R / p.grid[0]
+
+
+def test_matvec_plan_rejects_what_the_kernel_cannot_take():
+    from repro_torch.kernels.plan import matvec_plan
+    with pytest.raises(ValueError):
+        matvec_plan(8, 10, 3, 1)            # K not a multiple of 2 doubles
+    with pytest.raises(ValueError):
+        matvec_plan(2, 10, 8, 1)            # no half-precision kernel
+    with pytest.raises(ValueError):
+        matvec_plan(4, 0, 8, 1)
