@@ -12,10 +12,13 @@ exits non-zero):
   c. each kernel against its plain-torch version at the shapes its path
      gives it -- the coded-serving shapes of llama3.2-1b (L = 128 512 head
      rows, D = 2048; the decode-feeding products in their float64-output
-     form, beside the float32 one) and the paper's executor / streaming
-     verify shapes (L = 1e4 rows per master, float64), and the RWKV-6 WKV
-     recurrence at rwkv6-7b's serving prefill, decode and long-prefill
-     shapes (and against the sequential oracle at strong decays) -- with
+     form, beside the float32 one; the decode's known term R[par, known]
+     @ y at seed 1's step, also against the two-pass path it replaces,
+     and the counter rows at one chunk of it) and the paper's executor /
+     streaming verify shapes (L = 1e4 rows per master, float64), and the
+     RWKV-6 WKV recurrence at rwkv6-7b's serving prefill, decode and
+     long-prefill shapes (and against the sequential oracle at strong
+     decays) -- with
      its time (CUDA events, median), the plain version's time, a one-call
      PyTorch yardstick where one exists (for ``mds_encode`` also the same
      work: the parity rows alone), and the least time the card could take
@@ -37,7 +40,8 @@ exits non-zero):
      solves of seeds 2-9); per seed the solve size, peak memory, wall
      time, max_err and the argmax match rate against the uncoded head,
      raising unless ``decode_ok`` holds at the bridge's 5e-4 head
-     tolerance;
+     tolerance, and the decode's split (known term, minor build, LU
+     factor, LU solve) from the trace;
   f. coded serving at smoke size, materialised and virtual parity, through
      ``serve_policy_sweep`` (which asserts ``decode_ok``);
   g. the paper's static coded executor at its size (§V-A: M = 4 masters,
@@ -83,10 +87,15 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12            # outside the tensor cores
 F64_FLOP_PER_S = 67e12            # FP64 tensor cores (34e12 outside them)
 INT32_OP_PER_S = 33.5e12          # white paper's INT32 figure
-#: integer ALU operations per counter-derived parity entry: two threefry
-#: calls of 2 + 20 x 3 (add, funnel shift, xor) + 5 x 2 key injections,
-#: plus the column doubling and four >> 8 shifts
-INT_OPS_PER_ENTRY = 2 * (2 + 20 * 3 + 5 * 2) + 2 + 4
+#: integer operations a counter-derived parity entry needs: two threefry
+#: calls of 2 (round 1's add and xor) + 19 x 3 (add, rotation, xor) + 5 x
+#: 2 key injections, and four >> 8 shifts.  The counters' key adds, the
+#: column doubling and round 1's rotation depend on the row or the column
+#: alone and are shared by the entries of a row or a column.  No per-pipe
+#: term: only the 40 xors must run on the ALU pipe (half the INT32 rate),
+#: under half of 142; an add can run as an IMAD, a rotation as an
+#: IMAD.WIDE by 2^r whose halves the next xor's LOP3 takes in.
+INT_OPS_PER_ENTRY = 2 * (2 + 19 * 3 + 5 * 2) + 4
 #: float32 operations per entry: four scalings, three adds, the -2, x scale
 F32_OPS_PER_ENTRY = 9
 
@@ -103,6 +112,9 @@ CODED_REQUESTS, CODED_PROMPT, CODED_GEN, CODED_SLOTS = 4, 16, 4, 4
 TILES, TILE, D, BATCH = 1004, 128, 2048, CODED_SLOTS
 L_HEAD = 128512
 GEN_LANES = 48876
+#: seed 1's known columns at its frozen solve (L_HEAD - GEN_LANES): the
+#: decode's substitution term R[par, known] @ y is GEN_LANES x DECODE_KNOWN
+DECODE_KNOWN = L_HEAD - GEN_LANES
 #: the paper's size (core/problem.py large_scale_scenario, §V-A): rows per
 #: master, and the task width S = L (the paper fixes L, not the width)
 L_PAPER = 10_000
@@ -196,6 +208,14 @@ def bound(bytes_moved: float, op_times) -> tuple:
     t_ops = max(op_times) if op_times else 0.0
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def parity_op_times(ents: int) -> list:
+    """Least seconds for ``ents`` counter-derived parity entries, by
+    operation type: the integer operations at the INT32 rate, the float32
+    ones at the FP32 rate."""
+    return [ents * INT_OPS_PER_ENTRY / INT32_OP_PER_S,
+            ents * F32_OPS_PER_ENTRY / F32_FLOP_PER_S]
 
 
 def max_err(a, b) -> float:
@@ -432,17 +452,105 @@ def phase_c(dev) -> dict:
             and np.array_equal(got[:4].cpu().numpy(), host)):
         raise AssertionError("counter_parity_rows is not bit-equal")
     ents = 256 * L_HEAD
+    # timed on device counters of the kernel's operand type (uint32 bits
+    # as int32), as the decode holds them
+    kc = torch.from_numpy(ctrs.view(np.int32)).to(dev)
     report("counter_parity_rows", "src/repro_torch/csrc/mds_encode.cu",
            "src/repro/kernels/mds_encode.py:65", max_err(got, want), 0.0,
-           time_ms(lambda: ops.counter_parity_rows(key, L_HEAD, ctrs_t,
-                                                   device=dev)),
+           time_ms(lambda: ops.counter_parity_rows(key, L_HEAD, kc)),
            time_ms(lambda: ref.counter_parity_rows_ref(key, scale, ctrs_t,
                                                        cols), 3),
            None,
-           bound(4.0 * (ents + 256 + L_HEAD),
-                 [ents * INT_OPS_PER_ENTRY / INT32_OP_PER_S,
-                  ents * F32_OPS_PER_ENTRY / F32_FLOP_PER_S]))
+           bound(4.0 * (ents + 256 + L_HEAD), parity_op_times(ents)),
+           queued_ms=time_queued_ms(lambda: ops.counter_parity_rows(
+               key, L_HEAD, kc)))
     del got, want
+
+    # -- the decode's parity operands at seed 1's step (phase e): 48 876
+    # parity rows against the 79 636 known columns, C = 4 slots.  Its
+    # minor build derives R[par, unk] in row chunks of DECODE_CHUNK
+    # entries (counter_parity_rows; timed here at such a chunk of the
+    # known columns, which the two-pass path below runs); every step
+    # contracts R[par, known] against the pinned values
+    # (parity_contract), R never in memory
+    from repro_torch.serve_coded.packing import DECODE_CHUNK
+    rng = np.random.default_rng(0)
+    dctrs = mds.parity_counters(np.arange(GEN_LANES), 0)
+    dcols = np.sort(rng.permutation(L_HEAD)[:DECODE_KNOWN])
+    dctrs_t = torch.from_numpy(dctrs.astype(np.int64)).to(dev)
+    dcols_t = torch.from_numpy(dcols).to(dev)
+    kc = torch.from_numpy(dctrs.view(np.int32)).to(dev)     # uint32 bits,
+    kj = dcols_t.to(torch.int32)                            # as the decode
+    chunk = DECODE_CHUNK // DECODE_KNOWN                    # holds them
+    got = ops.counter_parity_rows(key, L_HEAD, kc[:chunk], cols=kj)
+    plain_ms, want = time_once(lambda: ref.counter_parity_rows_ref(
+        key, scale, dctrs_t[:chunk], dcols_t))
+    host = mds.counter_parity_rows(key, dctrs[:4], L_HEAD,
+                                   dtype=np.float32)[:, dcols]
+    if not (torch.equal(got, want)
+            and np.array_equal(got[:4].cpu().numpy(), host)):
+        raise AssertionError("counter_parity_rows at the decode chunk is "
+                             "not bit-equal")
+    ents = chunk * DECODE_KNOWN
+    bnd = bound(4.0 * (ents + chunk + DECODE_KNOWN), parity_op_times(ents))
+    rows_chunk = dict(
+        ms=time_ms(lambda: ops.counter_parity_rows(key, L_HEAD, kc[:chunk],
+                                                   cols=kj)),
+        queued_ms=time_queued_ms(lambda: ops.counter_parity_rows(
+            key, L_HEAD, kc[:chunk], cols=kj)),
+        plain_ms=plain_ms, bound_ms=bnd[0], max_abs_err=0.0)
+    rows["counter_parity_rows"]["decode_chunk"] = rows_chunk
+    print(f"[c] counter_parity_rows at the decode chunk {chunk} x "
+          f"{DECODE_KNOWN} gathered: bit-equal; kernel "
+          f"{rows_chunk['ms']:.3f} ms, queued {rows_chunk['queued_ms']:.3f}"
+          f" ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]})",
+          flush=True)
+    del got, want
+
+    y = torch.randn((DECODE_KNOWN, BATCH), generator=gen, device=dev,
+                    dtype=torch.float64)
+
+    def two_pass():
+        """The known term in two passes, the contraction's yardstick:
+        counter-row chunks of DECODE_CHUNK entries, a float64 cast,
+        torch.matmul."""
+        out = torch.empty((GEN_LANES, BATCH), dtype=torch.float64,
+                          device=dev)
+        for i in range(0, GEN_LANES, chunk):
+            out[i:i + chunk] = ops.counter_parity_rows(
+                key, L_HEAD, kc[i:i + chunk], cols=kj).to(torch.float64) @ y
+        return out
+
+    got = ops.parity_contract(key, L_HEAD, kc, y, cols=kj)
+    plain_ms, want = time_once(lambda: ref.parity_contract_ref(
+        key, scale, dctrs_t, dcols_t, y))
+    tol = 1e-12 * (1 + float(want.abs().max()))
+    two_ms, two = time_ms(two_pass, 3), two_pass()
+    two_err = max_err(got, two)
+    print(f"[c] parity_contract against the two-pass path (counter rows, "
+          f"float64 cast, torch.matmul; {two_ms:.3f} ms): max_abs_err="
+          f"{two_err:.3e} (tol {tol:.3e})", flush=True)
+    if two_err > tol:
+        raise AssertionError(f"parity_contract disagrees with the two-pass "
+                             f"path ({two_err} > {tol})")
+    # a fixed summation order and no atomics: every call the same bits
+    repeat_equal("parity_contract at seed 1's step", got,
+                 lambda: ops.parity_contract(key, L_HEAD, kc, y, cols=kj))
+    ents = GEN_LANES * DECODE_KNOWN
+    report("parity_contract", "src/repro_torch/csrc/mds_encode.cu",
+           "src/repro/kernels/mds_encode.py:65", max_err(got, want), tol,
+           time_ms(lambda: ops.parity_contract(key, L_HEAD, kc, y,
+                                               cols=kj)),
+           plain_ms, None,
+           bound(4.0 * (GEN_LANES + DECODE_KNOWN)
+                 + 8.0 * (DECODE_KNOWN + GEN_LANES) * BATCH,
+                 parity_op_times(ents)
+                 + [2.0 * ents * BATCH / F64_FLOP_PER_S]),
+           queued_ms=time_queued_ms(lambda: ops.parity_contract(
+               key, L_HEAD, kc, y, cols=kj)),
+           two_pass_ms=two_ms)
+    del got, want, two, y, kc, kj, dctrs_t, dcols_t
+    torch.cuda.empty_cache()
 
     # -- gen_parity_matvec: phase e's parity lanes against resident W ------
     w = torch.randn((L_HEAD, D), generator=gen, device=dev) * 0.02
@@ -468,10 +576,9 @@ def phase_c(dev) -> dict:
            plain_ms, None,
            bound(4.0 * (L_HEAD * D + D * BATCH + GEN_LANES)
                  + 8.0 * GEN_LANES * BATCH,
-                 [ents * INT_OPS_PER_ENTRY / INT32_OP_PER_S,
-                  ents * F32_OPS_PER_ENTRY / F32_FLOP_PER_S,
-                  (ents * 2 * BATCH + 2.0 * L_HEAD * D * BATCH)
-                  / F64_FLOP_PER_S]))
+                 parity_op_times(ents)
+                 + [(ents * 2 * BATCH + 2.0 * L_HEAD * D * BATCH)
+                    / F64_FLOP_PER_S]))
     del got, got32, want, xg
 
     # -- matmul: one parity block's encode R_b @ W --------------------------
@@ -914,14 +1021,24 @@ def _coded_head(dev, seed: int, product_dtype, arch: str = ARCH,
              if sp.cat == "step" and sp.name.startswith("step:")]
     print(f"[{phase}] {tag}: per-stage wall s {stages}; step walls s {steps} "
           f"(the first builds and factors the decode minor)", flush=True)
+    split = {}
+    for sp in tracer.spans:
+        if sp.cat == "decode_split":
+            split.setdefault(sp.name.split(":")[-1], []).append(sp.dur)
+    print(f"[{phase}] {tag}: decode split (calls, s in all, first s; the "
+          f"minor build is part of the factor): "
+          + ", ".join(f"{k} {len(v)} {sum(v):.3f} {v[0]:.3f}"
+                      for k, v in sorted(split.items()))
+          + f"; decode {rep.per_stage_wall.get('decode', 0.0):.3f}",
+          flush=True)
     answered = {rid: len(t) for rid, t in rep.tokens.items()}
     if len(answered) != CODED_REQUESTS or \
             any(n != CODED_GEN for n in answered.values()):
         raise AssertionError(f"not every request was answered: {answered}")
     if not sizes or not all(s > 0 for s in sizes):
         raise AssertionError(f"seed {seed} gave no parity solve")
-    for k in ("coded_matvec", "gen_parity_matvec", "counter_parity_rows") \
-            + (("wkv6",) if arch == RWKV else ()):
+    for k in ("coded_matvec", "gen_parity_matvec", "counter_parity_rows",
+              "parity_contract") + (("wkv6",) if arch == RWKV else ()):
         if grew[k] <= 0:
             raise AssertionError(f"phase {phase} never launched {k}")
     # the bridge's serve closures form reference cycles: collect them so
@@ -1256,12 +1373,14 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "queued_ms", "library_queued_ms",
-            "library_parity_ms", "batched", "float32", "verify")
+            "library_parity_ms", "two_pass_ms", "batched", "float32",
+            "verify", "decode_chunk")
     print(json.dumps({"kernels": [{k: rows[n][k] for k in keys
                                    if k in rows[n]}
                                   for n in ("matmul", "coded_matvec",
                                             "mds_encode",
                                             "counter_parity_rows",
+                                            "parity_contract",
                                             "gen_parity_matvec", "wkv6")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,36 +1,51 @@
 // Counter-derived MDS parity for Hopper (sm_90a): the virtual-parity
-// generator and the fused generated-parity product.
+// generator and the counter-derived parity contraction.
 //
 // Replaces repro/kernels/mds_encode.py::
 //   * counter_parity_rows_pallas (_rows_kernel, _parity_tile) -- parity
-//     generator rows R[ctrs] from packed (row | draw << 24) counters, and
+//     generator rows R[ctrs] from packed (row | draw << 24) counters,
 //   * gen_parity_matvec_pallas (_gen_matvec_kernel) -- y = R_gen @ (W @ x)
-//     with the encoded parity rows WR never stored.
+//     with the encoded parity rows WR never stored, and
+//   * the decode's substitution term R[par, known] @ y_known, which the
+//     reference forms whole (repro/serve_coded/packing.py:263-273, Gk)
+//     from counter_parity_rows_pallas rows.
 //
 // Every entry is two threefry2x32-20 calls, four 24-bit uniforms summed in
 // the fixed order (u(a0)+u(a1)) + (u(b0)+u(b1)) - 2, times sqrt(3/L)
 // (repro/core/mds.py:81-149).  The rows must be bit-identical to the host
 // derivation, so the arithmetic uses uint32 wrap-around, the exact
 // (bits >> 8) -> float conversion, and explicitly rounded single-precision
-// intrinsics (__fadd_rn/__fmul_rn), which the compiler never contracts
-// into FMAs.
+// intrinsics (__fadd_rn/__fmaf_rn/__fmul_rn), which the compiler never
+// contracts or reassociates.
 //
-// What bounds them on this card: ~160 integer ALU operations per generated
-// entry against 4 bytes written (counter rows) or a 2*C-FLOP contraction
-// (fused product) -- both are bound by the integer pipes, not by HBM.  The
-// contraction's float64 instantiation (the serving default: its products
-// feed a decode) adds C double FMAs per entry, well under the threefry
-// cost.
+// What bounds them on this card: 142 integer operations per generated
+// entry against 4 bytes written (counter rows) or a 2*C-FLOP contraction,
+// so both are bound by the integer pipes, not by HBM.  As written here
+// the rotations run as SHF on the ALU pipe, which alone runs SHF and LOP3
+// at half the issue rate: their 78 an entry (with the xors) take 156
+// issue slots' time, so this code reaches at most 142 / 156 of the
+// issue-rate bound.  ptxas puts a 32-bit add on either pipe (IADD3 on
+// the ALU, IMAD.IADD on the FMA pipe) and left 8 an entry on the ALU;
+// every threefry add is written here as x * one + y with `one` a kernel
+// argument (always 1), which ptxas cannot fold, so they all run as IMAD
+// on the FMA pipe and the ALU pipe carries the rotations, the xors and
+// the two shift-adds of the uniforms alone.
 //
-// Design.  counter_parity_rows takes an explicit column-index operand, so
-// decode minors derive only the columns they need (R[par, unk],
-// R[par, known]) instead of whole rows; each thread derives a column for 8
-// rows, stores coalesced along the row.  The fused product gets WX = W @ X
-// precomputed once per call by the coded_matvec kernel (the Pallas kernel
-// recomputed W_tile @ x in every row block); each block then owns 8 parity
-// rows, its threads stride over the L columns deriving R entries in
-// registers and contracting them against WX rows read through L2, and the
-// per-row sums are reduced across the block.  R never touches memory.
+// Design.  Work that depends on the row alone (c0 + k0) or on the column
+// alone (c1 + k1 and its first rotation, for both counters) is hoisted out
+// of the entry, and the two pairs of uniforms are summed as integers first
+// (below), which halves the int -> float conversions.  Each block owns 8
+// rows, loads their counters once, and strides its threads over the
+// columns; every entry of a column is derived for the 8 rows in registers
+// (8 independent threefry chains a thread).  The contraction kernel
+// contracts the entries against Z rows read through L2 (R never touches
+// memory) and reduces the per-row sums across the block in a fixed order:
+// no atomics, so repeated calls give the same bits.  With a column-index
+// operand it derives only the columns a decode needs (R[par, known]);
+// without one it takes columns 0..m-1 (the generated-parity lanes, Z =
+// W @ X precomputed once per call by the coded_matvec kernel).  The rows
+// kernel writes its 8 x 4 entries a thread coalesced along the row, for
+// decode minors (R[par, unk]) and parity-block encodes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -40,70 +55,121 @@ __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return __funnelshift_l(x, x, r);
 }
 
+// threefry2x32-20 of (c0, c1) under (k0, k1), from x0 = c0 + k0, x1 = c1 +
+// k1 and r1 = rotl(x1, 13): the first round's rotation depends on the
+// column alone, so it comes in precomputed.  `one` is 1: each a * one + b
+// is the add a + b, kept on the FMA pipe (see above).
 __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t c0, uint32_t c1,
-                                             uint32_t& o0, uint32_t& o1) {
-  const uint32_t ks2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  uint32_t x0 = c0 + k0, x1 = c1 + k1;
-#define TF_ROUND(r) \
-  x0 += x1;         \
-  x1 = rotl32(x1, r); \
+                                             uint32_t ks2, uint32_t one,
+                                             uint32_t x0, uint32_t x1,
+                                             uint32_t r1, uint32_t& o0,
+                                             uint32_t& o1) {
+#define TF_ROUND(r)     \
+  x0 = x1 * one + x0;   \
+  x1 = rotl32(x1, r);   \
   x1 ^= x0;
   // rotations (13,15,26,6) on even groups, (17,29,16,24) on odd groups;
   // key schedule (k1, ks2, k0) injected after every 4 rounds
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k1; x1 += ks2 + 1u;
+  x0 = x1 * one + x0;
+  x1 = r1 ^ x0;
+  TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
+  x0 = x0 * one + k1; x1 = x1 * one + (ks2 + 1u);
   TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += ks2; x1 += k0 + 2u;
+  x0 = x0 * one + ks2; x1 = x1 * one + (k0 + 2u);
   TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k0; x1 += k1 + 3u;
+  x0 = x0 * one + k0; x1 = x1 * one + (k1 + 3u);
   TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k1; x1 += ks2 + 4u;
+  x0 = x0 * one + k1; x1 = x1 * one + (ks2 + 4u);
   TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += ks2; x1 += k0 + 5u;
+  x0 = x0 * one + ks2; x1 = x1 * one + (k0 + 5u);
 #undef TF_ROUND
   o0 = x0;
   o1 = x1;
 }
 
-__device__ __forceinline__ float uniform24(uint32_t bits) {
-  // (bits >> 8) < 2^24 converts exactly; the 2^-24 scale is exact too
-  return __fmul_rn(__uint2float_rn(bits >> 8), 5.9604644775390625e-08f);
+// The launch's key: k0, k1, the schedule word ks2, and the run-time 1.
+struct Key {
+  uint32_t k0, k1, ks2, one;
+};
+
+__device__ __forceinline__ Key make_key(uint32_t k0, uint32_t k1,
+                                      uint32_t one) {
+  return Key{k0, k1, k0 ^ k1 ^ 0x1BD11BDAu, one};
 }
 
-__device__ __forceinline__ float parity_entry(uint32_t k0, uint32_t k1,
-                                              uint32_t ctr, uint32_t col,
-                                              float scale) {
+// A column's half of both threefry calls: counters (ctr, 2 col) and (ctr,
+// 2 col + 1) after the key add, and their first rotations.
+struct Col {
+  uint32_t xa, ra, xb, rb;
+};
+
+__device__ __forceinline__ Col make_col(const Key& k, uint32_t col) {
+  Col c;
+  c.xa = col * 2u + k.k1;
+  c.xb = c.xa + 1u;
+  c.ra = rotl32(c.xa, 13);
+  c.rb = rotl32(c.xb, 13);
+  return c;
+}
+
+// R(ctr, col) with x0 = ctr + k0.  u(a0) + u(a1) = ((a0 >> 8) + (a1 >> 8))
+// * 2^-24 exactly: each 24-bit value converts exactly, their sum (< 2^25)
+// is an exact integer, and one round-to-nearest conversion of it equals
+// the __fadd_rn of the two exact floats (scaling by 2^-24 is exact).  The
+// sum of the pairs times 2^-24 is exact too, so one fma minus 2 rounds
+// once, as the subtraction did.
+__device__ __forceinline__ float parity_entry(const Key& k, uint32_t x0,
+                                              const Col& c, float scale) {
   uint32_t a0, a1, b0, b1;
-  threefry2x32(k0, k1, ctr, col * 2u, a0, a1);
-  threefry2x32(k0, k1, ctr, col * 2u + 1u, b0, b1);
-  const float g = __fsub_rn(
-      __fadd_rn(__fadd_rn(uniform24(a0), uniform24(a1)),
-                __fadd_rn(uniform24(b0), uniform24(b1))),
-      2.0f);
+  threefry2x32(k.k0, k.k1, k.ks2, k.one, x0, c.xa, c.ra, a0, a1);
+  threefry2x32(k.k0, k.k1, k.ks2, k.one, x0, c.xb, c.rb, b0, b1);
+  const float sa = __uint2float_rn((a0 >> 8) + (a1 >> 8));
+  const float sb = __uint2float_rn((b0 >> 8) + (b1 >> 8));
+  const float g = __fmaf_rn(__fadd_rn(sa, sb), 5.9604644775390625e-08f,
+                            -2.0f);
   return __fmul_rn(g, scale);
 }
 
-constexpr int ROWS_PER_THREAD = 8;
+constexpr int ROWS = 8;                 // rows a block (and a thread)
+constexpr int THREADS = 256, WARPS = THREADS / 32;
+constexpr int CR_COLS = 4;              // columns a thread, rows kernel
 
-__global__ void __launch_bounds__(256)
-counter_rows_kernel(uint32_t k0, uint32_t k1, float scale,
-                    const uint32_t* __restrict__ ctrs, int n,
-                    const uint32_t* __restrict__ cols, int m,
-                    float* __restrict__ out) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= m) return;
-  const uint32_t col = cols[j];
-  const int r0 = blockIdx.y * ROWS_PER_THREAD;
+// The 8 rows' x0 = ctr + k0; rows past n derive from counter 0 and are
+// never stored.
+__device__ __forceinline__ void row_keys(const Key& k,
+                                         const uint32_t* __restrict__ ctrs,
+                                         int r0, int n, uint32_t* x0) {
 #pragma unroll
-  for (int r = 0; r < ROWS_PER_THREAD; ++r) {
-    const int i = r0 + r;
-    if (i < n)
-      out[(size_t)i * m + j] = parity_entry(k0, k1, ctrs[i], col, scale);
-  }
+  for (int r = 0; r < ROWS; ++r)
+    x0[r] = (r0 + r < n ? __ldg(ctrs + r0 + r) : 0u) + k.k0;
 }
 
-constexpr int GP_ROWS = 8, GP_THREADS = 256, GP_WARPS = GP_THREADS / 32;
+// out (n, m) float32, out[i, j] = R(ctrs[i], cols[j]); grid (row blocks,
+// column spans of THREADS * CR_COLS).
+__global__ void __launch_bounds__(THREADS)
+counter_rows_kernel(uint32_t k0, uint32_t k1, uint32_t one,
+                    float scale, const uint32_t* __restrict__ ctrs, int n,
+                    const uint32_t* __restrict__ cols, int m,
+                    float* __restrict__ out) {
+  const Key k = make_key(k0, k1, one);
+  const int r0 = blockIdx.x * ROWS;
+  uint32_t x0[ROWS];
+  row_keys(k, ctrs, r0, n, x0);
+  const int nr = min(ROWS, n - r0);
+  const int j0 = blockIdx.y * THREADS * CR_COLS + threadIdx.x;
+#pragma unroll
+  for (int q = 0; q < CR_COLS; ++q) {
+    const int j = j0 + q * THREADS;
+    if (j >= m) break;
+    const Col c = make_col(k, __ldg(cols + j));
+    float v[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) v[r] = parity_entry(k, x0[r], c, scale);
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+      if (r < nr) out[(size_t)(r0 + r) * m + j] = v[r];
+  }
+}
 
 __device__ __forceinline__ float fma_t(float a, float b, float c) {
   return fmaf(a, b, c);
@@ -112,43 +178,43 @@ __device__ __forceinline__ double fma_t(double a, double b, double c) {
   return fma(a, b, c);
 }
 
-// T is the type of WX, of the accumulator and of Y.  With T = double each
-// float32 R entry is widened exactly and contracted against the float64
-// WX in double: the products feed an MDS decode, which would amplify any
-// float32 rounding they carried.
-template <typename T, int CC>
-__global__ void __launch_bounds__(GP_THREADS)
-gen_parity_kernel(uint32_t k0, uint32_t k1, float scale,
-                  const uint32_t* __restrict__ ctrs, int n,
-                  const T* __restrict__ WX, int L, T* __restrict__ Y) {
-  __shared__ T red[GP_WARPS][GP_ROWS * CC];
-  const int r0 = blockIdx.x * GP_ROWS;
-  const int nr = min(GP_ROWS, n - r0);          // rows of this block
-  uint32_t ctr[GP_ROWS];
+// Y (n, CC) = R(ctrs, cols) @ Z, Z (m, CC) row-major; without GATHER the
+// columns are 0..m-1.  T is the type of Z, of the accumulator and of Y.
+// With T = double each float32 R entry is widened exactly and contracted
+// against the float64 Z in double: the products feed an MDS decode,
+// which would amplify any float32 rounding they carried.
+template <typename T, int CC, bool GATHER>
+__global__ void __launch_bounds__(THREADS)
+parity_contract_kernel(uint32_t k0, uint32_t k1, uint32_t one,
+                       float scale, const uint32_t* __restrict__ ctrs, int n,
+                       const uint32_t* __restrict__ cols, int m,
+                       const T* __restrict__ Z, T* __restrict__ Y) {
+  __shared__ T red[WARPS][ROWS * CC];
+  const Key k = make_key(k0, k1, one);
+  const int r0 = blockIdx.x * ROWS;
+  uint32_t x0[ROWS];
+  row_keys(k, ctrs, r0, n, x0);
+  T acc[ROWS][CC];
 #pragma unroll
-  for (int r = 0; r < GP_ROWS; ++r) ctr[r] = r < nr ? ctrs[r0 + r] : 0u;
-  T acc[GP_ROWS][CC];
-#pragma unroll
-  for (int r = 0; r < GP_ROWS; ++r)
+  for (int r = 0; r < ROWS; ++r)
 #pragma unroll
     for (int c = 0; c < CC; ++c) acc[r][c] = T(0);
 
-  for (int j = threadIdx.x; j < L; j += GP_THREADS) {
-    T wx[CC];
+  for (int j = threadIdx.x; j < m; j += THREADS) {
+    const Col col = make_col(k, GATHER ? __ldg(cols + j) : (uint32_t)j);
+    T z[CC];
 #pragma unroll
-    for (int c = 0; c < CC; ++c) wx[c] = WX[(size_t)j * CC + c];
+    for (int c = 0; c < CC; ++c) z[c] = Z[(size_t)j * CC + c];
 #pragma unroll
-    for (int r = 0; r < GP_ROWS; ++r) {
-      if (r < nr) {                               // uniform across the block
-        const T v = T(parity_entry(k0, k1, ctr[r], (uint32_t)j, scale));
+    for (int r = 0; r < ROWS; ++r) {
+      const T v = T(parity_entry(k, x0[r], col, scale));
 #pragma unroll
-        for (int c = 0; c < CC; ++c) acc[r][c] = fma_t(v, wx[c], acc[r][c]);
-      }
+      for (int c = 0; c < CC; ++c) acc[r][c] = fma_t(v, z[c], acc[r][c]);
     }
   }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
-  for (int r = 0; r < GP_ROWS; ++r)
+  for (int r = 0; r < ROWS; ++r)
 #pragma unroll
     for (int c = 0; c < CC; ++c) {
       T v = acc[r][c];
@@ -158,42 +224,41 @@ gen_parity_kernel(uint32_t k0, uint32_t k1, float scale,
       if (lane == 0) red[warp][r * CC + c] = v;
     }
   __syncthreads();
-  for (int t = threadIdx.x; t < GP_ROWS * CC; t += GP_THREADS) {
+  const int nr = min(ROWS, n - r0);
+  for (int t = threadIdx.x; t < ROWS * CC; t += THREADS) {
     const int r = t / CC;
     if (r >= nr) continue;
     T s = T(0);
 #pragma unroll
-    for (int w = 0; w < GP_WARPS; ++w) s += red[w][t];
+    for (int w = 0; w < WARPS; ++w) s += red[w][t];
     Y[(size_t)(r0 + r) * CC + (t % CC)] = s;
   }
 }
 
-template <typename T, int CC>
-int launch_gen(uint32_t k0, uint32_t k1, float scale, const uint32_t* ctrs,
-               int n, const T* WX, int L, T* Y, cudaStream_t st) {
-  const int blocks = (n + GP_ROWS - 1) / GP_ROWS;
-  gen_parity_kernel<T, CC><<<blocks, GP_THREADS, 0, st>>>(k0, k1, scale,
-                                                         ctrs, n, WX, L, Y);
+template <typename T, bool GATHER, int CC>
+int launch_contract(uint32_t k0, uint32_t k1, float scale,
+                    const uint32_t* ctrs, int n, const uint32_t* cols,
+                    int m, const void* Z, void* Y, cudaStream_t st) {
+  const int blocks = (n + ROWS - 1) / ROWS;
+  parity_contract_kernel<T, CC, GATHER><<<blocks, THREADS, 0, st>>>(
+      k0, k1, 1u, scale, ctrs, n, cols, m, static_cast<const T*>(Z),
+      static_cast<T*>(Y));
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool GATHER>
 int contract(uint32_t k0, uint32_t k1, float scale, const uint32_t* ctrs,
-             int n, const void* WXv, int L, int C, void* Yv,
-             cudaStream_t st) {
-  const T* WX = static_cast<const T*>(WXv);
-  T* Y = static_cast<T*>(Yv);
+             int n, const uint32_t* cols, int m, const void* Z, int C,
+             void* Y, cudaStream_t st) {
+#define CASE(cc)                                                          \
+  case cc:                                                                \
+    return launch_contract<T, GATHER, cc>(k0, k1, scale, ctrs, n, cols, m, \
+                                          Z, Y, st);
   switch (C) {
-    case 1: return launch_gen<T, 1>(k0, k1, scale, ctrs, n, WX, L, Y, st);
-    case 2: return launch_gen<T, 2>(k0, k1, scale, ctrs, n, WX, L, Y, st);
-    case 3: return launch_gen<T, 3>(k0, k1, scale, ctrs, n, WX, L, Y, st);
-    case 4: return launch_gen<T, 4>(k0, k1, scale, ctrs, n, WX, L, Y, st);
-    case 5: return launch_gen<T, 5>(k0, k1, scale, ctrs, n, WX, L, Y, st);
-    case 6: return launch_gen<T, 6>(k0, k1, scale, ctrs, n, WX, L, Y, st);
-    case 7: return launch_gen<T, 7>(k0, k1, scale, ctrs, n, WX, L, Y, st);
-    case 8: return launch_gen<T, 8>(k0, k1, scale, ctrs, n, WX, L, Y, st);
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef CASE
 }
 
 }  // namespace
@@ -206,22 +271,32 @@ int repro_counter_parity_rows(uint32_t k0, uint32_t k1, float scale,
                               const uint32_t* cols, int m, float* out,
                               void* stream) {
   if (n <= 0 || m <= 0) return 0;
-  dim3 grid((m + 255) / 256, (n + ROWS_PER_THREAD - 1) / ROWS_PER_THREAD);
+  dim3 grid((n + ROWS - 1) / ROWS,
+            (m + THREADS * CR_COLS - 1) / (THREADS * CR_COLS));
   if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
-  counter_rows_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      k0, k1, scale, ctrs, n, cols, m, out);
+  counter_rows_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      k0, k1, 1u, scale, ctrs, n, cols, m, out);
   return (int)cudaGetLastError();
 }
 
-// Y (n, C) = R(ctrs, 0..L-1) @ WX, WX (L, C) row-major, 1 <= C <= 8;
-// `f64` selects float64 WX, accumulation and Y (else float32 throughout).
-int repro_gen_parity_contract(int f64, uint32_t k0, uint32_t k1, float scale,
-                              const uint32_t* ctrs, int n, const void* WX,
-                              int L, int C, void* Y, void* stream) {
+// Y (n, C) = R(ctrs, cols) @ Z, Z (m, C) row-major, 1 <= C <= 8, cols
+// (m,) column indices or null for 0..m-1; `f64` selects float64 Z,
+// accumulation and Y (else float32 throughout, columns 0..m-1 only).
+int repro_parity_contract(int f64, uint32_t k0, uint32_t k1, float scale,
+                          const uint32_t* ctrs, int n, const uint32_t* cols,
+                          int m, const void* Z, int C, void* Y,
+                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n <= 0) return 0;
-  return f64 ? contract<double>(k0, k1, scale, ctrs, n, WX, L, C, Y, st)
-             : contract<float>(k0, k1, scale, ctrs, n, WX, L, C, Y, st);
+  if (cols != nullptr && !f64) return (int)cudaErrorInvalidValue;
+  if (!f64)
+    return contract<float, false>(k0, k1, scale, ctrs, n, cols, m, Z, C, Y,
+                                  st);
+  return cols != nullptr
+             ? contract<double, true>(k0, k1, scale, ctrs, n, cols, m, Z, C,
+                                      Y, st)
+             : contract<double, false>(k0, k1, scale, ctrs, n, cols, m, Z,
+                                       C, Y, st);
 }
 
 }  // extern "C"

@@ -20,6 +20,7 @@ def launch_counts() -> Dict[str, int]:
             "mds_encode": mds_encode.ENCODE_LAUNCHES,
             "counter_parity_rows": mds_encode.ROWS_LAUNCHES,
             "gen_parity_matvec": mds_encode.GEN_LAUNCHES,
+            "parity_contract": mds_encode.CONTRACT_LAUNCHES,
             "wkv6": wkv6.WKV6_LAUNCHES}
 
 
@@ -29,4 +30,5 @@ def reset_launch_counts() -> None:
     mds_encode.ENCODE_LAUNCHES = 0
     mds_encode.ROWS_LAUNCHES = 0
     mds_encode.GEN_LAUNCHES = 0
+    mds_encode.CONTRACT_LAUNCHES = 0
     wkv6.WKV6_LAUNCHES = 0

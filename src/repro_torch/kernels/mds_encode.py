@@ -2,7 +2,10 @@
 ``repro.kernels.mds_encode.mds_encode_pallas`` (Ã = G @ A, with the
 systematic prefix copied through and a task axis, as ``ops.mds_encode`` /
 ``ops.mds_encode_batch`` drive it), ``counter_parity_rows_pallas`` and
-``gen_parity_matvec_pallas``.
+``gen_parity_matvec_pallas``, and the counter-derived parity contraction
+``R[ctrs][:, cols] @ Z`` that serves both the generated-parity lanes and
+the decode's substitution term (which the reference forms from whole
+``counter_parity_rows_pallas`` blocks).
 
 The CUDA kernels are in ``csrc/mds_encode_gemm.cu`` and
 ``csrc/mds_encode.cu`` (design notes there).  On CPU tensors the wrappers
@@ -11,6 +14,7 @@ run the plain versions; on CUDA tensors they launch the kernels or raise.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -19,17 +23,23 @@ from ._launch import (F32, I, P, U32, check_cuda, raise_on_error, sm_count,
                       stream_ptr)
 from .coded_matvec import coded_matvec
 from .plan import gemm_plan
-from .ref import counter_parity_rows_ref, gen_parity_ref, mds_encode_ref
+from .ref import (counter_parity_rows_ref, gen_parity_ref, mds_encode_ref,
+                  parity_contract_ref)
 
 __all__ = ["mds_encode_dev", "counter_parity_rows_dev", "gen_parity_matvec",
-           "ENCODE_LAUNCHES", "ROWS_LAUNCHES", "GEN_LAUNCHES"]
+           "parity_contract_dev", "ENCODE_LAUNCHES", "ROWS_LAUNCHES",
+           "GEN_LAUNCHES", "CONTRACT_LAUNCHES"]
 
 #: launches of the encode GEMM since the last reset
 ENCODE_LAUNCHES = 0
 #: launches of the counter-rows kernel since the last reset
 ROWS_LAUNCHES = 0
-#: launches of the generated-parity contraction kernel since the last reset
+#: launches of the contraction kernel for generated-parity lanes since the
+#: last reset
 GEN_LAUNCHES = 0
+#: launches of the contraction kernel through parity_contract_dev (the
+#: decode's substitution term) since the last reset
+CONTRACT_LAUNCHES = 0
 
 _M32 = 0xFFFFFFFF
 
@@ -40,9 +50,9 @@ def _lib():
         lib.repro_counter_parity_rows.argtypes = [U32, U32, F32, P, I, P, I,
                                                   P, P]
         lib.repro_counter_parity_rows.restype = I
-        lib.repro_gen_parity_contract.argtypes = [I, U32, U32, F32, P, I, P,
-                                                  I, I, P, P]
-        lib.repro_gen_parity_contract.restype = I
+        lib.repro_parity_contract.argtypes = [I, U32, U32, F32, P, I, P, I,
+                                              P, I, P, P]
+        lib.repro_parity_contract.restype = I
         lib._typed = True
     return lib
 
@@ -134,6 +144,71 @@ def counter_parity_rows_dev(key, scale: float, ctrs: torch.Tensor,
     return out
 
 
+def _contract(key, scale: float, c32: torch.Tensor, j32, z: torch.Tensor,
+              what: str) -> Tuple[torch.Tensor, int]:
+    """R[c32][:, j32 or 0..m-1] @ z on the card, one launch per 8 columns
+    of z → (out (n, C) in z's dtype, launches)."""
+    dev = z.device
+    n, (m, C) = c32.numel(), z.shape
+    out = torch.empty((n, C), dtype=z.dtype, device=dev)
+    launches = 0
+    for c0 in range(0, C, 8):
+        cc = min(8, C - c0)
+        zc = z[:, c0:c0 + cc].contiguous() if C > 8 else z
+        yc = out if C <= 8 else torch.empty((n, cc), dtype=z.dtype,
+                                             device=dev)
+        err = _lib().repro_parity_contract(
+            int(z.dtype == torch.float64),
+            int(key[0]) & _M32, int(key[1]) & _M32, float(scale),
+            c32.data_ptr(), n, None if j32 is None else j32.data_ptr(), m,
+            zc.data_ptr(), cc, yc.data_ptr(), stream_ptr(dev))
+        raise_on_error(what, err)
+        launches += 1
+        if C > 8:
+            out[:, c0:c0 + cc] = yc
+    return out, launches
+
+
+def parity_contract_dev(key, scale: float, ctrs: torch.Tensor,
+                        cols: Optional[torch.Tensor], z: torch.Tensor, *,
+                        chunk: Optional[int] = None) -> torch.Tensor:
+    """``R[ctrs][:, cols] @ z`` (n, C) float64, R never in memory.
+
+    ``ctrs`` (n,) and ``cols`` (m,) integer tensors of uint32 values
+    (``cols`` None: columns 0..m-1), ``z`` (m, C) float64, all on one
+    device.  Each float32 R entry is widened exactly and accumulated in
+    float64, in a fixed order (repeated calls give the same bits); on the
+    card one launch per 8 columns of z.  On the CPU the plain version
+    derives R in row chunks of about ``chunk`` entries."""
+    global CONTRACT_LAUNCHES
+    dev = z.device
+    if z.dtype != torch.float64 or z.dim() != 2:
+        raise ValueError(f"parity_contract: expected z (m, C) float64, got "
+                         f"{z.dtype} of shape {tuple(z.shape)}")
+    m = z.shape[0]
+    if cols is not None and (cols.dim() != 1 or cols.numel() != m):
+        raise ValueError(f"parity_contract: {cols.numel()} columns for z of "
+                         f"{m} rows")
+    for name, t in (("ctrs", ctrs), ("cols", cols)):
+        if t is not None and t.device != dev:
+            raise ValueError(f"parity_contract {name}: expected a tensor on "
+                             f"{dev}, got {t.device}")
+    if dev.type == "cpu":
+        return parity_contract_ref(
+            key, scale, ctrs, torch.arange(m) if cols is None else cols, z,
+            chunk=chunk)
+    c32 = _as_u32(ctrs)
+    check_cuda("parity_contract ctrs", c32, torch.int32, 1, dev)
+    j32 = None
+    if cols is not None:
+        j32 = _as_u32(cols)
+        check_cuda("parity_contract cols", j32, torch.int32, 1, dev)
+    check_cuda("parity_contract z", z, torch.float64, 2, dev)
+    out, n = _contract(key, scale, c32, j32, z, "parity_contract")
+    CONTRACT_LAUNCHES += n
+    return out
+
+
 def gen_parity_matvec(key, scale: float, ctrs: torch.Tensor, w: torch.Tensor,
                       x: torch.Tensor, *,
                       out_dtype: torch.dtype = torch.float64) -> torch.Tensor:
@@ -151,24 +226,9 @@ def gen_parity_matvec(key, scale: float, ctrs: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"gen_parity: unsupported output {out_dtype}")
     if dev.type == "cpu":
         return gen_parity_ref(key, scale, ctrs, w, x, out_dtype=out_dtype)
-    L = w.shape[0]
-    n, C = ctrs.numel(), x.shape[1]
     c32 = _as_u32(ctrs)
     check_cuda("gen_parity ctrs", c32, torch.int32, 1, dev)
     wx = coded_matvec(w, x.contiguous(), out_dtype=out_dtype)   # (L, C)
-    out = torch.empty((n, C), dtype=out_dtype, device=dev)
-    for c0 in range(0, C, 8):
-        cc = min(8, C - c0)
-        wxc = wx[:, c0:c0 + cc].contiguous() if C > 8 else wx
-        yc = out if C <= 8 else torch.empty((n, cc), dtype=out_dtype,
-                                             device=dev)
-        err = _lib().repro_gen_parity_contract(
-            int(out_dtype == torch.float64),
-            int(key[0]) & _M32, int(key[1]) & _M32, float(scale),
-            c32.data_ptr(), n, wxc.data_ptr(), L, cc, yc.data_ptr(),
-            stream_ptr(dev))
-        raise_on_error("gen_parity_matvec", err)
-        GEN_LAUNCHES += 1
-        if C > 8:
-            out[:, c0:c0 + cc] = yc
+    out, n = _contract(key, scale, c32, None, wx, "gen_parity_matvec")
+    GEN_LAUNCHES += n
     return out

@@ -33,12 +33,13 @@ from ..obs import device_span
 from .coded_matvec import coded_matvec as _coded_matvec
 from .matmul import matmul
 from .mds_encode import (counter_parity_rows_dev, gen_parity_matvec,
-                         mds_encode_dev)
+                         mds_encode_dev, parity_contract_dev)
 from .wkv6 import wkv6_dev
 
 __all__ = ["matmul", "mds_encode", "mds_encode_batch", "coded_matvec",
            "coded_matvec_batch", "coded_shard_matmul_batch",
-           "counter_parity_rows", "parity_scale", "gen_parity_products",
+           "counter_parity_rows", "parity_contract", "parity_scale",
+           "gen_parity_products",
            "GeneratedParity", "wkv6", "wkv6_heads"]
 
 
@@ -57,11 +58,13 @@ def parity_scale(L: int) -> float:
 
 
 def _u32_tensor(ctrs, device: torch.device) -> torch.Tensor:
-    """Host uint32 counters → an int64 tensor of the same values."""
+    """uint32 values → a tensor on ``device``: host arrays as int32 of the
+    same bits (the kernels' operand type, so the wrappers convert
+    nothing), tensors as they are."""
     if isinstance(ctrs, torch.Tensor):
         return ctrs.to(device)
     return torch.from_numpy(
-        np.asarray(ctrs, dtype=np.uint32).astype(np.int64)).to(device)
+        np.asarray(ctrs, dtype=np.uint32).view(np.int32)).to(device)
 
 
 def coded_matvec(a_tilde: torch.Tensor, x: torch.Tensor, *,
@@ -124,9 +127,28 @@ def counter_parity_rows(key: Tuple[int, int], L: int, ctrs, *,
     dev = ctrs.device if isinstance(ctrs, torch.Tensor) and device is None \
         else resolve_device(device)
     c = _u32_tensor(ctrs, dev)
-    j = torch.arange(L, device=dev) if cols is None \
+    j = torch.arange(L, dtype=torch.int32, device=dev) if cols is None \
         else _u32_tensor(cols, dev)
     return counter_parity_rows_dev(key, parity_scale(L), c, j)
+
+
+def parity_contract(key: Tuple[int, int], L: int, ctrs, z: torch.Tensor, *,
+                    cols=None, chunk: Optional[int] = None) -> torch.Tensor:
+    """``R[ctrs][:, cols] @ z`` (n, C) float64 for the parity rows of an
+    L-column generator: ``z`` (m, C) float64, ``cols`` (m,) column ids
+    (None: 0..L-1, so m = L).  The counter-derived entries are the
+    same bits as :func:`counter_parity_rows`'; on the card they are
+    contracted in registers and R never exists in memory (one launch per
+    8 columns of z); on the CPU R is derived in row chunks of about
+    ``chunk`` entries.  ``ctrs`` and ``cols`` may be host uint32 arrays or
+    tensors; the result lies on z's device."""
+    if cols is None and z.shape[0] != L:
+        raise ValueError(f"parity_contract: z of {z.shape[0]} rows for "
+                         f"the {L} columns of the generator")
+    dev = z.device
+    c = _u32_tensor(ctrs, dev)
+    j = None if cols is None else _u32_tensor(cols, dev)
+    return parity_contract_dev(key, parity_scale(L), c, j, z, chunk=chunk)
 
 
 def gen_parity_products(key: Tuple[int, int], ctrs, w: torch.Tensor,

@@ -19,7 +19,8 @@ import torch
 
 __all__ = ["matmul_ref", "coded_matvec_ref", "coded_matvec_batch_ref",
            "mds_encode_ref", "threefry2x32_ref", "counter_parity_rows_ref",
-           "gen_parity_ref", "wkv6_chunk_ref", "wkv6_chunked_ref"]
+           "parity_contract_ref", "gen_parity_ref", "wkv6_chunk_ref",
+           "wkv6_chunked_ref"]
 
 _M32 = 0xFFFFFFFF
 _TF_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -107,22 +108,30 @@ def counter_parity_rows_ref(key, scale: float, ctrs: torch.Tensor,
     return out
 
 
+def parity_contract_ref(key, scale: float, ctrs: torch.Tensor,
+                        cols: torch.Tensor, z: torch.Tensor, *,
+                        chunk: Optional[int] = None) -> torch.Tensor:
+    """``R[ctrs][:, cols] @ z`` (n, C) in z's dtype, which is also the
+    accumulation type: R is derived in row chunks of about ``chunk``
+    entries (default ``_CHUNK``; never all of it at once), each float32
+    chunk widened to z's dtype and multiplied."""
+    n, m = ctrs.numel(), cols.numel()
+    out = torch.empty((n, z.shape[1]), dtype=z.dtype, device=z.device)
+    step = max(1, (chunk or _CHUNK) // max(m, 1))
+    for i in range(0, n, step):
+        r = counter_parity_rows_ref(key, scale, ctrs[i:i + step], cols)
+        out[i:i + step] = r.to(z.dtype) @ z
+    return out
+
+
 def gen_parity_ref(key, scale: float, ctrs: torch.Tensor, w: torch.Tensor,
                    x: torch.Tensor, *,
                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Generated-parity products ``R_gen[ctrs] @ (W @ x)`` (n, C) in
-    ``out_dtype``, which is also the accumulation type of both products;
-    R is derived row-chunk by row-chunk (never all of it at once)."""
-    L = w.shape[0]
+    ``out_dtype``, which is also the accumulation type of both products."""
     wx = torch.matmul(w.to(out_dtype), x.to(out_dtype))
-    cols = torch.arange(L, device=w.device)
-    n = ctrs.numel()
-    out = torch.empty((n, x.shape[1]), dtype=out_dtype, device=w.device)
-    step = max(1, _CHUNK // max(L, 1))
-    for i in range(0, n, step):
-        r = counter_parity_rows_ref(key, scale, ctrs[i:i + step], cols)
-        out[i:i + step] = r.to(out_dtype) @ wx
-    return out
+    return parity_contract_ref(key, scale, ctrs,
+                               torch.arange(w.shape[0], device=w.device), wx)
 
 
 def wkv6_chunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

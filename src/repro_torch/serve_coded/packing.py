@@ -33,11 +33,13 @@ bit-identical to the uncoded pipeline.
 
 Decode on the card.  With ``backend="torch"`` the substitution decode
 runs on the card in float64 (:class:`_DeviceDecodeGroup`): the
-unknown-column parity minor ``R[par, unk]`` and the substitution term
-``R[par, known] @ y_known`` are derived blockwise from the rows' packed
-counters by the counter-rows kernel — at llama3.2-1b's head (L = 128 512,
-a ~56k-row solve) the dense parity rows (s × L) and the known-column block
-(s × (L − s)) would each take tens of GB and are never formed.  The numpy
+unknown-column parity minor ``R[par, unk]`` is derived blockwise from the
+rows' packed counters by the counter-rows kernel, and the substitution
+term ``R[par, known] @ y_known`` by the parity-contraction kernel, which
+derives the known-column entries in registers — at llama3.2-1b's head (L
+= 128 512, a ~56k-row solve) the dense parity rows (s × L) and the
+known-column block (s × (L − s)) would each take tens of GB and are never
+formed.  The numpy
 engine derives the same two blocks column-restricted on the host
 (:class:`_DecodeGroup`), bit-identical to slicing the dense rows.
 
@@ -57,17 +59,22 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..obs import current_tracer
+from ..obs import current_tracer, device_span
 from ..stream import backend as bk
 from .coded_linear import CodedLinear, shard_products
 
 __all__ = ["ShardProblem", "PackedShards", "PackedStage",
            "pack_shard_problems"]
 
-#: parity entries derived per chunk of the on-card decode (≈1 GB float32
-#: plus its float64 copy) — bounds the transient memory of the minor
-#: build and of the substitution term
+#: parity entries derived per chunk of the minor build (≈1 GB float32
+#: before its float64 copy into the minor) and of the known term on the
+#: CPU — bounds their transient memory
 DECODE_CHUNK = 1 << 28
+#: trace category of the on-card decode's parts (known term, minor build
+#: and factorisation with the build inside it, LU solve): nested inside
+#: the ``decode`` stage span, so outside the stage categories that tile a
+#: step
+_SPLIT = "decode_split"
 
 
 @dataclasses.dataclass
@@ -300,7 +307,10 @@ class _DeviceMember:
     def __init__(self, lin: CodedLinear, r: np.ndarray):
         dev = lin.device
         sys_pos, par_pos, sys_rows, unk = _partition(r, lin.L)
-        t = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+        # int32 holding the uint32 bits: the kernels' operand type (and an
+        # index type), so no call of a frozen plan converts its operands
+        t = lambda a: torch.from_numpy(
+            np.asarray(a, np.uint32).view(np.int32)).to(dev)
         self.lin = lin
         self.sys_pos, self.par_pos = t(sys_pos), t(par_pos)
         self.sys_rows, self.unk = t(sys_rows), t(unk)
@@ -308,40 +318,46 @@ class _DeviceMember:
         self.lu = None
         self.checked = False
 
-    def _blocks(self, cols: torch.Tensor):
-        """Row chunks ``(i, R[par[i:i+k], cols])`` float32 from the
-        counter-rows kernel, ≤ :data:`DECODE_CHUNK` entries each."""
-        from ..kernels import ops
-        n = self.ctrs.numel()
-        step = max(1, DECODE_CHUNK // max(cols.numel(), 1))
-        for i in range(0, n, step):
-            yield i, ops.counter_parity_rows(
-                self.lin.pkey, self.lin.L, self.ctrs[i:i + step], cols=cols)
-
     def factor(self) -> None:
         """Build the (s, s) unknown-column minor in float64, column-major,
-        and LU-factor it in place (one float64 copy of the minor)."""
+        and LU-factor it in place (one float64 copy of the minor); its
+        rows come from the counter-rows kernel in chunks of ≤
+        :data:`DECODE_CHUNK` entries."""
+        from ..kernels import ops
         n = self.ctrs.numel()
         A = torch.empty((n, n), dtype=torch.float64,
                         device=self.ctrs.device).mT
-        for i, blk in self._blocks(self.unk):
-            A[i:i + blk.shape[0]] = blk
+        step = max(1, DECODE_CHUNK // n)
+        with device_span("decode:minor", cat=_SPLIT) as fence:
+            for i in range(0, n, step):
+                A[i:i + step] = ops.counter_parity_rows(
+                    self.lin.pkey, self.lin.L, self.ctrs[i:i + step],
+                    cols=self.unk)
+            fence(A)
         self.lu = bk.lu_factor_torch(A)
 
     def known_term(self, sys_y: torch.Tensor) -> torch.Tensor:
-        """``R[par, known] @ y_known`` with float64 accumulation."""
-        out = torch.empty((self.ctrs.numel(), sys_y.shape[1]),
-                          dtype=torch.float64, device=sys_y.device)
-        for i, blk in self._blocks(self.sys_rows):
-            out[i:i + blk.shape[0]] = blk.to(torch.float64) @ sys_y
-        return out
+        """``R[par, known] @ y_known`` with float64 accumulation, in one
+        kernel on the card (``R[par, known]`` is never formed); on the
+        CPU in row chunks of ≤ :data:`DECODE_CHUNK` entries."""
+        from ..kernels import ops
+        return ops.parity_contract(self.lin.pkey, self.lin.L, self.ctrs,
+                                   sys_y, cols=self.sys_rows,
+                                   chunk=DECODE_CHUNK)
 
     def solve(self, y0: torch.Tensor, z0: torch.Tensor) -> None:
         sys_y = y0[self.sys_pos]
-        rhs = y0[self.par_pos] - self.known_term(sys_y)
+        with device_span("decode:known_term", cat=_SPLIT,
+                         args={"rows": int(self.ctrs.numel()),
+                               "cols": int(self.sys_rows.numel())}) as fence:
+            rhs = y0[self.par_pos] - fence(self.known_term(sys_y))
         if self.lu is None:
-            self.factor()
-        sol = bk.lu_solve_torch(self.lu, rhs)
+            with device_span("decode:factor", cat=_SPLIT,
+                             args={"n": int(self.ctrs.numel())}) as fence:
+                self.factor()
+                fence(self.lu)
+        with device_span("decode:lu_solve", cat=_SPLIT) as fence:
+            sol = fence(bk.lu_solve_torch(self.lu, rhs))
         if not self.checked:
             if not bool(torch.isfinite(sol).all()):
                 raise np.linalg.LinAlgError("Singular matrix")
@@ -357,9 +373,9 @@ class _DeviceDecodeGroup:
     Each member's unknown-column minor ``R[par, unk]`` is derived by the
     counter-rows kernel in row chunks into one column-major float64
     buffer and LU-factored in place on first use (once per frozen plan);
-    each step derives the known-column block chunk by chunk and contracts
-    it against the pinned values in float64 — neither the dense parity
-    rows nor the known-column block ever exists whole."""
+    each step contracts the known-column entries against the pinned values
+    in float64 in one kernel per 8 columns — neither the dense parity rows
+    nor the known-column block ever exists."""
 
     def __init__(self, sel, problems, rows, s):
         self.sel = sel

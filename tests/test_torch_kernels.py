@@ -9,6 +9,8 @@ both packages.
 """
 import numpy as np
 import pytest
+from hypothesis import example, given, settings
+from hypothesis import strategies as st
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -207,6 +209,74 @@ def test_counter_parity_rows_extreme_counters():
     assert np.array_equal(want, got)
 
 
+@pytest.mark.parametrize("C", [1, 4, 11])
+def test_parity_contract_matches_reference_rows(C, monkeypatch):
+    """R[ctrs][:, cols] @ Z, the decode's substitution term, against the
+    reference's rows gathered at random columns times a float64 Z; the
+    plain version derives R in row chunks (small ones here, so several)."""
+    monkeypatch.setattr(tref, "_CHUNK", 256)
+    rng = np.random.default_rng(31 + C)
+    key, L = (0xC0FFEE, 0x9E3779B9), 300
+    ctrs = jmds.parity_counters(np.arange(5, 45), [0, 1, 2, 200] * 10)
+    cols = rng.permutation(L)[:97]
+    z = rng.normal(size=(cols.size, C))
+    want = jmds.counter_parity_rows(key, ctrs, L)[:, cols].astype(
+        np.float64) @ z
+    got = tops.parity_contract(key, L, ctrs, _t(z), cols=cols)
+    assert got.dtype == torch.float64 and got.shape == (ctrs.size, C)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-12 * (1 + np.abs(want).max()))
+    # no cols: columns 0..L-1
+    zf = rng.normal(size=(L, C))
+    np.testing.assert_allclose(
+        tops.parity_contract(key, L, ctrs, _t(zf)).numpy(),
+        jmds.counter_parity_rows(key, ctrs, L).astype(np.float64) @ zf,
+        rtol=0, atol=1e-12 * (1 + np.abs(want).max()))
+
+
+def test_parity_contract_rejects_what_the_kernel_cannot_take():
+    """The wrapper checks its operands before it picks a path, so a
+    mismatch raises on every device (no path falls back)."""
+    ctrs = torch.arange(3)
+    cols = torch.arange(5)
+    with pytest.raises(ValueError, match="float64"):
+        tops.parity_contract((1, 2), 8, ctrs, torch.ones(5, 2), cols=cols)
+    with pytest.raises(ValueError, match="4 columns for z of 5 rows"):
+        tops.parity_contract((1, 2), 8, ctrs,
+                             torch.ones(5, 2, dtype=torch.float64),
+                             cols=cols[:4])
+    with pytest.raises(ValueError, match="z of 5 rows for the 8 columns"):
+        tops.parity_contract((1, 2), 8, ctrs,
+                             torch.ones(5, 2, dtype=torch.float64))
+    # operands on two devices (``ops`` moves host counters to z's device;
+    # the kernel wrapper takes tensors as they lie)
+    from repro_torch.kernels.mds_encode import parity_contract_dev
+    with pytest.raises(ValueError, match="expected a tensor on cpu"):
+        parity_contract_dev((1, 2), 0.5, torch.arange(3, device="meta"),
+                            cols, torch.ones(5, 2, dtype=torch.float64))
+
+
+_U24 = st.integers(0, 2 ** 24 - 1)
+
+
+@settings(max_examples=400, deadline=None)
+@given(_U24, _U24, _U24, _U24)
+@example(0, 0, 0, 0)
+@example(2 ** 24 - 1, 2 ** 24 - 1, 2 ** 24 - 1, 2 ** 24 - 1)
+@example(2 ** 24 - 1, 1, 0, 2 ** 23 + 1)
+def test_integer_pair_sums_give_the_entry_bits(a0, a1, b0, b1):
+    """The kernels' parity entry: u(a0) + u(a1) with u(v) = v * 2^-24 of
+    the 24-bit values equals one round-to-nearest conversion of the
+    integer a0 + a1, scaled; and (pair sum) * 2^-24 - 2 rounds once, so
+    it is one fma.  Bit for bit, in numpy float32."""
+    f, s24 = np.float32, np.float32(2.0 ** -24)
+    old = ((f(a0) * s24 + f(a1) * s24) + (f(b0) * s24 + f(b1) * s24)) - f(2)
+    s = f(a0 + a1) + f(b0 + b1)
+    new = f(np.float64(s) * 2.0 ** -24 - 2.0)      # fma: one rounding
+    assert old.dtype == new.dtype == np.float32
+    assert old.view(np.uint32) == new.view(np.uint32)
+
+
 def test_gen_parity_products_matches_xla_twin():
     rng = np.random.default_rng(5)
     L, D, C = 96, 40, 3
@@ -287,13 +357,16 @@ def test_launch_counts_stay_zero_on_cpu():
     kernels.reset_launch_counts()
     tops.matmul(torch.ones(4, 4), torch.ones(4, 4))
     tops.counter_parity_rows((1, 2), 8, np.arange(3), device="cpu")
+    tops.parity_contract((1, 2), 8, np.arange(3),
+                         torch.ones(8, 2, dtype=torch.float64))
     tops.mds_encode_batch(torch.ones(5, 3, dtype=torch.float64),
                           torch.ones(2, 3, 4, dtype=torch.float64))
     tops.coded_matvec_batch(torch.ones(2, 3, 4), torch.ones(2, 4))
     tops.wkv6(*(torch.ones(2, 5, 8) for _ in range(4)), torch.ones(8))
     tops.wkv6_heads(*(torch.ones(1, 2, 1, 8) for _ in range(4)),
                     torch.ones(2, 8), torch.zeros(1, 2, 8, 8))
-    assert {"mds_encode", "wkv6"} <= set(kernels.launch_counts())
+    assert {"mds_encode", "parity_contract", "wkv6"} <= set(
+        kernels.launch_counts())
     assert set(kernels.launch_counts().values()) == {0}
 
 

@@ -264,6 +264,39 @@ def test_device_decode_group_matches_numpy_engine(monkeypatch):
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-9)
 
 
+def test_known_term_on_cpu_is_the_row_chunked_float64_product(monkeypatch):
+    """On CPU tensors the substitution term keeps its arithmetic bit for
+    bit: counter rows over the known columns in row chunks of
+    DECODE_CHUNK entries (small here, so several), each widened to
+    float64 and times the pinned values (the card fuses the same entries
+    into one kernel)."""
+    from repro_torch.kernels import ops
+    lin, = _linears(CodedLinear, "virtual", backend="torch", device="cpu")
+    r = _stage([lin]).problems[0].rows
+    mem = tpacking._DeviceMember(lin, r)
+    n, m = mem.ctrs.numel(), mem.sys_rows.numel()
+    assert n > 8 and m > 8                           # a real parity solve
+    y = torch.from_numpy(np.random.default_rng(17).normal(size=(m, 3)))
+    monkeypatch.setattr(tpacking, "DECODE_CHUNK", 3 * m + 1)
+    step = max(1, tpacking.DECODE_CHUNK // m)
+    assert step == 3 and n > 2 * step               # several chunks
+    want = torch.cat([ops.counter_parity_rows(
+        lin.pkey, L, mem.ctrs[i:i + step], cols=mem.sys_rows).to(
+            torch.float64) @ y for i in range(0, n, step)])
+    # the row blocks the plain version derives (and multiplies), in order
+    import repro_torch.kernels.ref as tref
+    blocks, rows = [], tref.counter_parity_rows_ref
+    monkeypatch.setattr(tref, "counter_parity_rows_ref",
+                        lambda k, s, c, j: blocks.append(c.numel())
+                        or rows(k, s, c, j))
+    got = mem.known_term(y)
+    assert got.dtype == torch.float64 and torch.equal(got, want)
+    assert blocks == [min(step, n - i) for i in range(0, n, step)]
+    # the kernels' uint32 operands are the counters' bits
+    ctrs = lin.parity_ctrs(r[r >= L] - L)
+    assert np.array_equal(mem.ctrs.numpy().view(np.uint32), ctrs)
+
+
 def test_device_path_never_builds_host_buffer():
     lins = _linears(CodedLinear, "virtual", 1, backend="torch", device="cpu")
     stg = _stage(lins, backend="torch")

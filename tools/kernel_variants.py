@@ -1,19 +1,19 @@
 #!/usr/bin/env python3
 """Time the port's float32 GEMM core, float64 encode, ``coded_matvec`` and
-``gen_parity_matvec`` as built from several checkouts, side by side on
-one card.
+counter-derived parity kernels as built from several checkouts, side by
+side on one card.
 
     python3 tools/kernel_variants.py NAME=DIR [NAME=DIR ...] [--rounds N]
-        [--out FILE]
+        [--only parity] [--out FILE]
 
 Each DIR is a checkout of this repo (``.`` for this one; another commit
 unpacked with ``git archive``, or a copy with the change to be tried).
 Its ``src/repro_torch/csrc`` is built with the port's nvcc flags into
 ``build/variants/NAME/`` (one nvcc per source, all started together) and
 launched with ctypes on the launch plans of its own
-``src/repro_torch/kernels/plan.py``; a checkout whose plan has no
-``matvec_plan`` gets ``coded_matvec``'s older entry point, which plans in
-C.  Every variant runs on the same inputs, at the shapes ``chip_smoke.py``
+``src/repro_torch/kernels/plan.py``, through the C entry points of this
+tree (a checkout with other ones is timed through its own
+``chip_smoke.py`` instead).  Every variant runs on the same inputs, at the shapes ``chip_smoke.py``
 times in phase c, beside the same-work PyTorch call:
 
 * ``matmul`` 256 x 128 512 @ 128 512 x 2048 float32;
@@ -25,7 +25,17 @@ times in phase c, beside the same-work PyTorch call:
 * ``gen_parity_matvec`` at phase c's shape (48 876 lanes), whole (W @ x
   through the variant's ``coded_matvec``, then the contraction), its
   contraction alone, and the last variant's contraction with W @ x
-  copied to six other addresses.
+  copied to six other addresses;
+* the parity cases (alone with ``--only parity``, which builds only
+  ``mds_encode``): ``counter_parity_rows`` at 256 x 128 512 and at a
+  decode chunk of 3 370 counters x 79 636 gathered columns (bit-equal
+  across variants), the contraction over columns 0..L-1 at 48 876 lanes
+  against a float64 Z, and the decode's known term R[par, known] @ y at
+  48 876 x 79 636 gathered, C = 4, in one contraction launch beside the
+  two-pass path it replaces (counter-row chunks of 2^28 entries, float64
+  cast, torch.matmul); and
+  each kernel's instructions per entry in its main loop, by opcode and by
+  pipe, from ``cuobjdump -sass`` of the built library.
 
 Each round takes the cases in turn and the variants in a rotated order.
 Prints each variant's registers and spills (ptxas), its largest
@@ -53,6 +63,10 @@ sys.path.insert(0, str(ROOT))
 
 OUT = ROOT / "build" / "variants"
 SOURCES = ("matmul", "mds_encode_gemm", "coded_matvec", "mds_encode")
+#: seed 1's step shape in phase e of chip_smoke.py: parity rows, known
+#: columns; and the rows of one 2^28-entry chunk of its known block
+DECODE_S, DECODE_KNOWN = 48876, 79636
+DECODE_CHUNK_ROWS = (1 << 28) // DECODE_KNOWN
 P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 U32, F32 = ctypes.c_uint32, ctypes.c_float
 
@@ -60,8 +74,9 @@ U32, F32 = ctypes.c_uint32, ctypes.c_float
 class Variant:
     """One checkout's kernels, built, with its launch plans."""
 
-    def __init__(self, name: str, checkout: Path):
+    def __init__(self, name: str, checkout: Path, sources=SOURCES):
         self.name, self.checkout = name, checkout.resolve()
+        self.sources = sources
         self.csrc = self.checkout / "src" / "repro_torch" / "csrc"
         self.dir = OUT / name
         spec = importlib.util.spec_from_file_location(
@@ -75,34 +90,53 @@ class Variant:
     def start(self, nvcc: str, flags) -> list:
         self.dir.mkdir(parents=True, exist_ok=True)
         procs = []
-        for s in SOURCES:
+        for s in self.sources:
             log = open(self.dir / f"{s}.log", "w")
             p = subprocess.Popen([nvcc, *flags, "-o", str(self.dir /
                                                          f"lib{s}.so"),
                                   str(self.csrc / f"{s}.cu")],
                                  stdout=log, stderr=subprocess.STDOUT)
-            p.log, p.label = log, f"{self.name}/{s}"
+            p.log, p.label, p.variant = log, f"{self.name}/{s}", self.name
             procs.append(p)
         return procs
 
     def load(self) -> None:
-        for s in SOURCES:
+        for s in self.sources:
             self.libs[s] = ctypes.CDLL(str(self.dir / f"lib{s}.so"))
-        self.libs["matmul"].repro_matmul_f32.argtypes = [P, P, P, P, I, I,
-                                                         I, I, I, I, P]
-        self.libs["mds_encode_gemm"].repro_mds_encode.argtypes = [
-            I, P, LL, P, P, I, I, I, I, I, I, I, I, P, P]
-        self.libs["mds_encode"].repro_gen_parity_contract.argtypes = [
-            I, U32, U32, F32, P, I, P, I, I, P, P]
-        self.planned_matvec = hasattr(self.plan, "matvec_plan")
-        self.libs["coded_matvec"].repro_coded_matvec.argtypes = (
-            [I, P, P, P] + [I] * (10 if self.planned_matvec else 5) + [P])
+        if "matmul" in self.libs:
+            self.libs["matmul"].repro_matmul_f32.argtypes = [
+                P, P, P, P, I, I, I, I, I, I, P]
+            self.libs["mds_encode_gemm"].repro_mds_encode.argtypes = [
+                I, P, LL, P, P, I, I, I, I, I, I, I, I, P, P]
+            self.libs["coded_matvec"].repro_coded_matvec.argtypes = (
+                [I, P, P, P] + [I] * 10 + [P])
+        lib = self.libs["mds_encode"]
+        lib.repro_counter_parity_rows.argtypes = [U32, U32, F32, P, I, P, I,
+                                                  P, P]
+        lib.repro_parity_contract.argtypes = [I, U32, U32, F32, P, I, P, I,
+                                              P, I, P, P]
+
+    def kernels(self) -> dict:
+        """ptxas's registers and spill stores of each mds_encode kernel,
+        by (demangled-enough) name."""
+        out, name = {}, None
+        for ln in (self.dir / "mds_encode.log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                name = m.group(1)
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and name:
+                out.setdefault(name, {})["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores", ln)
+            if m and name:
+                out.setdefault(name, {})["spill_stores"] = int(m.group(1))
+        return out
 
     def ptxas(self) -> str:
         """Registers (most) and spill stores (sum) of each library's
         kernels, from nvcc -Xptxas -v."""
         parts = []
-        for s in SOURCES:
+        for s in self.sources:
             text = (self.dir / f"{s}.log").read_text()
             regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
             spill = sum(int(b) for b in
@@ -110,6 +144,121 @@ class Variant:
             parts.append(f"{s} {max(regs, default=0)} registers, {spill} B "
                          f"spilled")
         return "; ".join(parts)
+
+
+#: SASS opcodes by the pipe that runs them (sm_90; "alu" is the integer
+#: and logic pipe at half the issue rate, which alone runs LOP3 and SHF;
+#: IMAD and the float32 arithmetic share the "fma" pipe)
+PIPES = {
+    "alu": ("LOP3", "SHF", "LEA", "IADD3", "ISETP", "SEL", "PRMT", "MOV",
+            "FSEL", "FSETP", "IMNMX", "FMNMX", "PLOP3", "SGXT", "BMSK",
+            "LOP", "FLO", "POPC", "IABS"),
+    "fma": ("IMAD", "FFMA", "FADD", "FMUL", "VIADD", "FMNMX3"),
+    "fp64": ("DFMA", "DADD", "DMUL"),
+    "conversion": ("I2F", "I2FP", "F2F", "F2I", "F2FP", "MUFU"),
+    "memory": ("LDG", "STG", "LDS", "STS", "LD", "ST", "LDC", "SHFL",
+               "ATOM", "RED"),
+}
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
+                   r"([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def _pipe(op: str) -> str:
+    base = op.split(".")[0]
+    if base.startswith("U"):
+        return "uniform"
+    for pipe, ops in PIPES.items():
+        if base in ops:
+            return pipe
+    return "control/other"
+
+
+def sass_functions(lib: Path, cuobjdump: Path) -> dict:
+    """{mangled kernel name: [(address, opcode, operands)]} from
+    ``cuobjdump -sass``; branch targets given as labels are resolved to
+    addresses."""
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    funcs, labels, cur, pending = {}, {}, None, []
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            labels[m.group(1)] = lab = {}
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", ln)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = _INSN.search(ln)
+        if m and cur is not None:
+            addr = int(m.group(1), 16)
+            for name in pending:
+                lab[name] = addr
+            pending = []
+            cur.append((addr, m.group(3), m.group(4)))
+    for name, insns in funcs.items():
+        for i, (a, op, rest) in enumerate(insns):
+            t = re.search(r"`\((\.L_x_\d+)\)", rest)
+            if t and t.group(1) in labels[name]:
+                insns[i] = (a, op, f" 0x{labels[name][t.group(1)]:x}")
+    return funcs
+
+
+def main_loop(insns) -> list:
+    """The instructions of the widest backward branch's range (the main
+    loop), or all of them when there is no loop."""
+    best = None
+    for a, op, rest in insns:
+        t = re.search(r"0x([0-9a-f]+)", rest)
+        if op.startswith("BRA") and t and int(t.group(1), 16) < a:
+            lo = int(t.group(1), 16)
+            if best is None or a - lo > best[1] - best[0]:
+                best = (lo, a)
+    if best is None:
+        return list(insns)
+    return [x for x in insns if best[0] <= x[0] <= best[1]]
+
+
+def sass_per_entry(v: "Variant", cuobjdump: Path) -> dict:
+    """Instructions per derived entry, by opcode and by pipe, in the main
+    loop of the rows kernel and of the float64 4-column contraction
+    kernels.  Entries per loop trip: the rows kernel stores each entry
+    once (STG), the contraction widens each one to float64 (F2F.F64)."""
+    out = {}
+    regs = v.kernels()
+    for name, insns in sass_functions(v.dir / "libmds_encode.so",
+                                      cuobjdump).items():
+        # the rows kernel, and the contraction's <double, 4, GATHER>
+        m = re.search(r"counter_rows_kernel|parity_contract_kernelIdLi4ELb"
+                      r"([01])E", name)
+        if not m:
+            continue
+        label = "counter_rows_kernel" if m.group(1) is None else \
+            ("parity_contract_kernel " +
+             ("gather" if m.group(1) == "1" else "0..m-1"))
+        loop = main_loop(insns)
+        ops = [op for _, op, _ in loop]
+        entries = sum(op.startswith("STG") for op in ops) \
+            if "rows" in label else \
+            sum(op.startswith("F2F.F64") for op in ops)
+        if not entries:
+            continue
+        hist, pipes = {}, {}
+        for op in ops:
+            key = ".".join(op.split(".")[:2]) if op.startswith("IMAD") \
+                else op.split(".")[0]
+            hist[key] = hist.get(key, 0) + 1
+            pipes[_pipe(op)] = pipes.get(_pipe(op), 0) + 1
+        out[label] = dict(
+            kernel=name, ptxas=regs.get(name, {}), loop_insns=len(ops),
+            entries_per_trip=entries,
+            per_entry=round(len(ops) / entries, 2),
+            pipes={k: round(c / entries, 2) for k, c in
+                   sorted(pipes.items(), key=lambda kv: -kv[1])},
+            opcodes={k: round(c / entries, 2) for k, c in
+                     sorted(hist.items(), key=lambda kv: -kv[1])[:16]})
+    return out
 
 
 def main() -> int:
@@ -120,6 +269,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("variants", nargs="+", metavar="NAME=DIR")
     ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--only", choices=("all", "parity"), default="all",
+                    help="parity: build mds_encode alone and run only the "
+                         "parity cases")
     ap.add_argument("--out", type=Path, default=OUT / "kernel_variants.json")
     args = ap.parse_args()
     import numpy as np
@@ -130,7 +282,8 @@ def main() -> int:
     from repro_torch.kernels._launch import stream_ptr
     from repro_torch.kernels.mds_encode import _as_u32
 
-    variants = [Variant(n, Path(d)) for n, d in
+    sources = ("mds_encode",) if args.only == "parity" else SOURCES
+    variants = [Variant(n, Path(d), sources) for n, d in
                 (v.split("=", 1) for v in args.variants)]
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -138,16 +291,30 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     procs = [p for v in variants
              for p in v.start(_build.nvcc_path(), _build.NVCC_FLAGS)]
+    failed = set()
     for p in procs:
         rc = p.wait()
         p.log.close()
         if rc:
-            print(Path(p.log.name).read_text(), file=sys.stderr)
-            raise RuntimeError(f"nvcc failed for {p.label}")
+            # a variant that does not build is reported and left out
+            print(f"nvcc failed for {p.label}:\n"
+                  f"{Path(p.log.name).read_text()[-4000:]}", flush=True)
+            failed.add(p.variant)
+    variants = [v for v in variants if v.name not in failed]
+    if not variants:
+        return 1
+    record = {"card": cs.card_line(), "cases": {}, "sass": {}}
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
     for v in variants:
         v.load()
         print(f"[ptxas] {v.name}: {v.ptxas()}", flush=True)
-    record = {"card": cs.card_line(), "cases": {}}
+        record["sass"][v.name] = sass_per_entry(v, cuobjdump)
+        for label, r in record["sass"][v.name].items():
+            print(f"[sass] {v.name} {label}: {r['per_entry']} instructions "
+                  f"an entry ({r['loop_insns']} in the loop, "
+                  f"{r['entries_per_trip']} entries a trip), ptxas "
+                  f"{r['ptxas']}; by pipe {r['pipes']}; by opcode "
+                  f"{r['opcodes']}", flush=True)
     st = stream_ptr(dev)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -206,12 +373,9 @@ def main() -> int:
         C = x.shape[-1]
         y = torch.empty((B, R, C), dtype=out_dtype, device=dev)
         fn = v.libs["coded_matvec"].repro_coded_matvec
-        if v.planned_matvec:
-            p = v.plan.matvec_plan(a.element_size(), R, K, C, B, sms)
-            plan_args = (p.route_code, p.grid[0], p.rows_per_block,
-                         p.slab_bytes, p.blocks_per_sm)
-        else:
-            plan_args = ()
+        p = v.plan.matvec_plan(a.element_size(), R, K, C, B, sms)
+        plan_args = (p.route_code, p.grid[0], p.rows_per_block,
+                     p.slab_bytes, p.blocks_per_sm)
 
         def call():
             check(fn(types, a.data_ptr(), x.data_ptr(), y.data_ptr(), B, R,
@@ -231,18 +395,18 @@ def main() -> int:
                               device=dev)
             wx = buf[offset:].view(wx.shape).copy_(wx)
         out = torch.empty((c32.numel(), C), dtype=torch.float64, device=dev)
-        fn = v.libs["mds_encode"].repro_gen_parity_contract
+        fn = v.libs["mds_encode"].repro_parity_contract
 
         def call():
             src = wx if contract_only else wx_call()[0]
             check(fn(1, key[0], key[1], scale, c32.data_ptr(), c32.numel(),
-                     src.data_ptr(), L, C, out.data_ptr(), st),
-                  "gen_parity_contract")
+                     None, L, src.data_ptr(), C, out.data_ptr(), st),
+                  "parity_contract")
             return out
         return call
 
     def run(label: str, make, library=None, queued=False, clocks=False,
-            iters=5, calls=None):
+            iters=5, calls=None, entries=None):
         """Time ``make(v)()`` for every variant, or the given ``calls``
         (and ``library``), over the rounds; record and print the
         summary."""
@@ -279,74 +443,166 @@ def main() -> int:
                          f"{qs[0]:.3f}-{qs[-1]:.3f})")
             if k in errs:
                 line += f", diff/(1+max) {errs[k]:.2e}"
+            if entries:
+                best = rec[k].get("queued_ms", rec[k]["ms"])
+                rec[k]["ps_per_entry"] = best * 1e9 / entries
+                line += f", {rec[k]['ps_per_entry']:.2f} ps an entry"
             if clocks:
                 rec[k]["clocks"] = cs.sample_clocks(calls[k])
                 line += f", {rec[k]['clocks']}"
             print(line, flush=True)
         record["cases"][label] = rec
 
-    # -- the head's products: matmul, coded_matvec's W @ x, gen_parity ------
-    key = (0x1234ABCD, 0x9E3779B8)
-    scale = float(ops.parity_scale(cs.L_HEAD))
-    M, K, N = 256, cs.L_HEAD, cs.D
-    a = torch.randn((M, K), generator=gen, device=dev)
-    w = torch.randn((K, N), generator=gen, device=dev) * 0.02
-    run(f"matmul {M} x {K} @ {K} x {N} float32", lambda v: matmul(v, a, w),
-        lambda: torch.matmul(a, w), clocks=True)
-    del a
-    x = torch.randn((N, cs.BATCH), generator=gen, device=dev)
-    run(f"coded_matvec {K} x {N} float32 against {cs.BATCH} columns, "
-        f"float64 sums", lambda v: matvec(v, w[None], x[None],
-                                          torch.float64),
-        lambda: torch.matmul(w, x)[None], queued=True)
-    c32 = _as_u32(torch.from_numpy(
-        mds.parity_counters(np.arange(cs.GEN_LANES), 0).astype(np.int64)
-    ).to(dev))
-    run(f"gen_parity_matvec {cs.GEN_LANES} lanes x {K}, float64",
-        lambda v: gen_parity(v, key, scale, c32, w, x, False), clocks=True)
-    run("gen_parity_matvec contraction alone",
-        lambda v: gen_parity(v, key, scale, c32, w, x, True))
-    # the same W @ x at other addresses (every block reads all of it
-    # through L2): the last variant's contraction
-    run("gen_parity_matvec contraction alone, W @ x moved",
-        None, calls={f"{v.name} +{o * 8} B": gen_parity(
-            v, key, scale, c32, w, x, True, o)
-            for v in variants[-1:] for o in (0, 32, 4096, 131072, 180000,
-                                             524288)})
-    del w, x, c32
-    torch.cuda.empty_cache()
-
-    # -- the encodes --------------------------------------------------------
-    Lp, B4 = cs.L_PAPER, 4
-    for dt in (torch.float32, torch.float64):
-        G = torch.randn((B4, 2 * Lp, Lp), generator=gen, device=dev,
-                        dtype=dt) / Lp ** 0.5
-        A = torch.randn((B4, Lp, Lp), generator=gen, device=dev, dtype=dt)
-        run(f"mds_encode {str(dt).split('.')[-1]} {B4} x parity ({Lp} x "
-            f"{Lp}) @ ({Lp} x {Lp})", lambda v: encode(v, G, A),
-            lambda: torch.matmul(G[:, Lp:], A), iters=3)
-        if dt == torch.float64:
-            g = G[0].contiguous()
-            zt = torch.randn((1, Lp, cs.VERIFY_TASKS), generator=gen,
-                             device=dev, dtype=dt)
-            run(f"mds_encode float64 verify parity ({Lp} x {Lp}) @ ({Lp} x "
-                f"{cs.VERIFY_TASKS})", lambda v: encode(v, g, zt),
-                lambda: torch.matmul(g[Lp:], zt), queued=True)
-            del g, zt
-        del G, A
+    def gemm_cases() -> None:
+        # -- the head's products: matmul, coded_matvec's W @ x, gen_parity ------
+        key = (0x1234ABCD, 0x9E3779B8)
+        scale = float(ops.parity_scale(cs.L_HEAD))
+        M, K, N = 256, cs.L_HEAD, cs.D
+        a = torch.randn((M, K), generator=gen, device=dev)
+        w = torch.randn((K, N), generator=gen, device=dev) * 0.02
+        run(f"matmul {M} x {K} @ {K} x {N} float32", lambda v: matmul(v, a, w),
+            lambda: torch.matmul(a, w), clocks=True)
+        del a
+        x = torch.randn((N, cs.BATCH), generator=gen, device=dev)
+        run(f"coded_matvec {K} x {N} float32 against {cs.BATCH} columns, "
+            f"float64 sums", lambda v: matvec(v, w[None], x[None],
+                                              torch.float64),
+            lambda: torch.matmul(w, x)[None], queued=True)
+        c32 = _as_u32(torch.from_numpy(
+            mds.parity_counters(np.arange(cs.GEN_LANES), 0).astype(np.int64)
+        ).to(dev))
+        run(f"gen_parity_matvec {cs.GEN_LANES} lanes x {K}, float64",
+            lambda v: gen_parity(v, key, scale, c32, w, x, False), clocks=True)
+        run("gen_parity_matvec contraction alone",
+            lambda v: gen_parity(v, key, scale, c32, w, x, True))
+        # the same W @ x at other addresses (every block reads all of it
+        # through L2): the last variant's contraction
+        run("gen_parity_matvec contraction alone, W @ x moved",
+            None, calls={f"{v.name} +{o * 8} B": gen_parity(
+                v, key, scale, c32, w, x, True, o)
+                for v in variants[-1:] for o in (0, 32, 4096, 131072, 180000,
+                                                 524288)})
+        del w, x, c32
         torch.cuda.empty_cache()
 
-    # -- the executor's batched coded_matvec ---------------------------------
-    at = torch.randn((B4, 2 * Lp, Lp), generator=gen, device=dev,
-                     dtype=torch.float64)
-    xb = torch.randn((B4, Lp, 1), generator=gen, device=dev,
-                     dtype=torch.float64)
-    run(f"coded_matvec batched {B4} x ({2 * Lp} x {Lp}) . ({Lp},) float64",
-        lambda v: matvec(v, at, xb, torch.float64),
-        lambda: torch.matmul(at, xb), queued=True)
+        # -- the encodes --------------------------------------------------------
+        Lp, B4 = cs.L_PAPER, 4
+        for dt in (torch.float32, torch.float64):
+            G = torch.randn((B4, 2 * Lp, Lp), generator=gen, device=dev,
+                            dtype=dt) / Lp ** 0.5
+            A = torch.randn((B4, Lp, Lp), generator=gen, device=dev, dtype=dt)
+            run(f"mds_encode {str(dt).split('.')[-1]} {B4} x parity ({Lp} x "
+                f"{Lp}) @ ({Lp} x {Lp})", lambda v: encode(v, G, A),
+                lambda: torch.matmul(G[:, Lp:], A), iters=3)
+            if dt == torch.float64:
+                g = G[0].contiguous()
+                zt = torch.randn((1, Lp, cs.VERIFY_TASKS), generator=gen,
+                                 device=dev, dtype=dt)
+                run(f"mds_encode float64 verify parity ({Lp} x {Lp}) @ ({Lp} x "
+                    f"{cs.VERIFY_TASKS})", lambda v: encode(v, g, zt),
+                    lambda: torch.matmul(g[Lp:], zt), queued=True)
+                del g, zt
+            del G, A
+            torch.cuda.empty_cache()
+
+        # -- the executor's batched coded_matvec ---------------------------------
+        at = torch.randn((B4, 2 * Lp, Lp), generator=gen, device=dev,
+                         dtype=torch.float64)
+        xb = torch.randn((B4, Lp, 1), generator=gen, device=dev,
+                         dtype=torch.float64)
+        run(f"coded_matvec batched {B4} x ({2 * Lp} x {Lp}) . ({Lp},) float64",
+            lambda v: matvec(v, at, xb, torch.float64),
+            lambda: torch.matmul(at, xb), queued=True)
+
+    def parity_cases() -> None:
+        key = (0x1234ABCD, 0x9E3779B8)
+        k0, k1 = key
+        L = cs.L_HEAD
+        scale = float(ops.parity_scale(L))
+        rng = np.random.default_rng(0)
+
+        def u32(a):
+            return _as_u32(torch.from_numpy(
+                np.asarray(a, dtype=np.int64)).to(dev))
+
+        def rows(v, c32, j32):
+            def call():
+                n, m = c32.numel(), j32.numel()
+                out = torch.empty((n, m), device=dev)
+                check(v.libs["mds_encode"].repro_counter_parity_rows(
+                    k0, k1, scale, c32.data_ptr(), n, j32.data_ptr(), m,
+                    out.data_ptr(), st), "counter_parity_rows")
+                return out
+            return call
+
+        def contract(v, c32, j32, z):
+            out = torch.empty((c32.numel(), z.shape[1]),
+                              dtype=torch.float64, device=dev)
+
+            def call():
+                check(v.libs["mds_encode"].repro_parity_contract(
+                    1, k0, k1, scale, c32.data_ptr(), c32.numel(),
+                    None if j32 is None else j32.data_ptr(), z.shape[0],
+                    z.data_ptr(), z.shape[1], out.data_ptr(), st),
+                    "parity_contract")
+                return out
+            return call
+
+        def two_pass(v, c32, j32, z):
+            """The decode's known term before the contraction kernel:
+            counter-row chunks of 2^28 entries, cast, torch.matmul."""
+            out = torch.empty((c32.numel(), z.shape[1]),
+                              dtype=torch.float64, device=dev)
+
+            def call():
+                for i in range(0, c32.numel(), DECODE_CHUNK_ROWS):
+                    c = c32[i:i + DECODE_CHUNK_ROWS]
+                    out[i:i + c.numel()] = rows(v, c, j32)().to(
+                        torch.float64) @ z
+                return out
+            return call
+
+        def bit_equal(label):
+            errs = {k: r["rel_err"] for k, r in
+                    record["cases"][label].items()}
+            if any(e != 0.0 for e in errs.values()):
+                print(f"[{label}] NOT BIT-EQUAL across variants: {errs}",
+                      flush=True)
+                differ.append(label)
+
+        lab = f"counter_parity_rows 256 x {L}"
+        c256, cols = u32(mds.parity_counters(np.arange(256), 0)), \
+            u32(np.arange(L))
+        run(lab, lambda v: rows(v, c256, cols), queued=True,
+            entries=256 * L)
+        bit_equal(lab)
+        gcols = u32(np.sort(rng.permutation(L)[:DECODE_KNOWN]))
+        cdec = u32(mds.parity_counters(np.arange(DECODE_S), 0))
+        lab = (f"counter_parity_rows decode chunk {DECODE_CHUNK_ROWS} x "
+               f"{DECODE_KNOWN} gathered")
+        run(lab, lambda v: rows(v, cdec[:DECODE_CHUNK_ROWS], gcols),
+            queued=True, entries=DECODE_CHUNK_ROWS * DECODE_KNOWN)
+        bit_equal(lab)
+        z = torch.randn((L, 4), generator=gen, device=dev,
+                        dtype=torch.float64)
+        run(f"parity contraction {cs.GEN_LANES} lanes x {L}, C = 4, "
+            f"float64", lambda v: contract(v, cdec[:cs.GEN_LANES], None, z),
+            queued=True, entries=cs.GEN_LANES * L)
+        y = torch.randn((DECODE_KNOWN, 4), generator=gen, device=dev,
+                        dtype=torch.float64)
+        run(f"known term {DECODE_S} x {DECODE_KNOWN} gathered, C = 4, "
+            f"float64", None, calls={
+                **{v.name: contract(v, cdec, gcols, y) for v in variants},
+                "two-pass": two_pass(variants[0], cdec, gcols, y)},
+            queued=True, entries=DECODE_S * DECODE_KNOWN, iters=3)
+
+    differ = []
+    if args.only == "all":
+        gemm_cases()
+    parity_cases()
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(record, indent=1))
-    return 0
+    return 1 if differ else 0
 
 
 if __name__ == "__main__":
