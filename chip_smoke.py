@@ -17,8 +17,10 @@ exits non-zero):
      and the counter rows at one chunk of it) and the paper's executor /
      streaming verify shapes (L = 1e4 rows per master, float64), and the
      RWKV-6 WKV recurrence at rwkv6-7b's serving prefill, decode and
-     long-prefill shapes (and against the sequential oracle at strong
-     decays) -- with
+     long-prefill shapes in bf16 and float32 (its launch plan printed,
+     timed also from a CUDA graph beside a one-element kernel, 16 long
+     prefills bit-equal; against the sequential oracle at strong decays
+     and below the 1e-12 clamp in both types; at edge shapes) -- with
      its time (CUDA events, median), the plain version's time, a one-call
      PyTorch yardstick where one exists (for ``mds_encode`` also the same
      work: the parity rows alone), and the least time the card could take
@@ -85,6 +87,7 @@ sys.path.insert(0, str(ROOT / "src"))
 #: published peaks of one H100 SXM (NVIDIA data sheet / Hopper white paper)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12            # outside the tensor cores
+TF32_FLOP_PER_S = 495e12          # TF32 tensor cores
 F64_FLOP_PER_S = 67e12            # FP64 tensor cores (34e12 outside them)
 INT32_OP_PER_S = 33.5e12          # white paper's INT32 figure
 #: integer operations a counter-derived parity entry needs: two threefry
@@ -186,6 +189,27 @@ def time_queued_ms(fn, iters: int = 20) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def time_graph_ms(fn, n: int = 20) -> float:
+    """Device time a call of ``fn``: ``n`` calls captured in one CUDA
+    graph and replayed (one warm-up replay first), so no host work sits
+    between the kernels."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def time_once(fn):
@@ -608,7 +632,8 @@ def phase_c(dev) -> dict:
     del a, w, got, want
     torch.cuda.empty_cache()
     gemm_edge_sweep(dev)
-    wkv6_rows(dev, report)
+    wkv6_extra = wkv6_rows(dev, report)
+    rows["wkv6"].update(wkv6_extra)
     return rows
 
 
@@ -824,50 +849,149 @@ def gemm_edge_sweep(dev) -> None:
 
 
 def _wkv6_inputs(dev, B: int, T: int, dtype, lo=None, hi=None,
-                 state: bool = False, seed: int = 0) -> tuple:
-    """WKV inputs at rwkv6-7b's head shape, as the mixer makes them: r, k,
-    v ~ N(0, 1); decays exp(-exp(-2 + 0.05 N)) (the random init's w0 and
-    LoRA scale) or uniform in [lo, hi]; u ~ N(0, 0.1^2) per head."""
+                 state: bool = False, seed: int = 0, zero_every: int = 0,
+                 H: int = None, K: int = None, V: int = None) -> tuple:
+    """WKV inputs, by default at rwkv6-7b's head shape, as the mixer makes
+    them: r, k, v ~ N(0, 1); decays exp(-exp(-2 + 0.05 N)) (the random
+    init's w0 and LoRA scale) or uniform in [lo, hi], every
+    ``zero_every``-th step exactly 0 when it is set; u ~ N(0, 0.1^2) per
+    head."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(seed)
-    BH, H, K = B * WKV_H, WKV_H, WKV_K
+    H = WKV_H if H is None else H
+    K = WKV_K if K is None else K
+    V = K if V is None else V
+    BH = B * H
 
     def n(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    r, k, v = (n(BH, T, K).to(dtype) for _ in range(3))
+    r, k = (n(BH, T, K).to(dtype) for _ in range(2))
+    v = n(BH, T, V).to(dtype)
     if lo is None:
         w = torch.exp(-torch.exp(-2.0 + 0.05 * n(BH, T, K)))
     else:
         w = lo + (hi - lo) * torch.rand((BH, T, K), generator=gen,
                                         device=dev)
+    if zero_every:
+        w[:, ::zero_every] = 0.0
     u = 0.1 * n(H, K)
-    s0 = n(BH, K, K) if state else None
+    s0 = n(BH, K, V) if state else None
     return r, k, v, w.to(dtype), u, s0
 
 
 def _wkv6_bound(B: int, T: int, esz: int, state: bool) -> tuple:
     """Least time of one WKV call: each input read once (r, k, v, w, u,
-    and S_0 when given), each output written once (o, S_T); about 6 K V
-    float32 operations per (b, h, t)."""
+    and S_0 when given), each output written once (o, S_T); and the
+    operations of the route wkv6_plan gives T.  The decode step (T <= 1)
+    runs about 6 K V float32 operations per (b, h) outside the tensor
+    cores.  The chunked route (T > 1) runs its two K x V products a step,
+    the carry-in (r ⊙ F) S and the state update (k ⊙ G)ᵀ v, 2 K V
+    operations each, on the TF32 tensor cores, once for each product its
+    precision route takes: the state update two for bf16 inputs (v exact,
+    the float32 factor split) and three for float32, the output products
+    one for bf16 and three for float32.  The chunk's strict-causal
+    products and the FMA-pipe work are left out, so this stays a lower
+    bound."""
     BH, K = B * WKV_H, WKV_K
     nbytes = (esz * 4 * BH * T * K + 4 * WKV_H * K + esz * BH * T * K
               + 4 * BH * K * K * (2 if state else 1))
-    return bound(nbytes, [6.0 * BH * T * K * K / F32_FLOP_PER_S])
+    if T <= 1:
+        return bound(nbytes, [6.0 * BH * T * K * K / F32_FLOP_PER_S])
+    products = 2 + 1 if esz == 2 else 3 + 3
+    return bound(nbytes, [2.0 * products * BH * T * K * K / TF32_FLOP_PER_S])
 
 
-def wkv6_rows(dev, report) -> None:
-    """The wkv6 kernel against its plain version (the chunked form the
-    model's reference runs) at rwkv6-7b's path shapes, in bf16 (the path)
-    and float32, and against the sequential oracle at strong decays.
+#: phase c's wkv6 decay sweeps (lo, hi, every n-th step exactly 0):
+#: moderate to strong; strong throughout (the plain chunked form's
+#: exp(-cumsum(log w)) leaves float32's range); below the 1e-12 clamp
+WKV_DECAYS = ((0.05, 0.999, 0), (0.05, 0.25, 0), (0.0, 1e-11, 5))
+#: phase c's wkv6 edge shapes (B, H, T, K, V, with S_0): T of 0, 1, one
+#: ragged chunk and several; K across both compiled head sizes (padded);
+#: V ragged against the 32-column blocks and the 16-byte decode rows
+WKV_EDGES = ((1, 3, 1, 8, 33, True), (2, 2, 0, 16, 8, True),
+             (1, 2, 5, 24, 40, False), (2, 1, 17, 64, 64, True),
+             (1, 2, 37, 72, 20, True), (1, 1, 100, 128, 70, False),
+             (1, 2, 33, 16, 16, True), (3, 2, 1, 64, 6, False))
 
-    Tolerances: float32 outputs at 1e-5 x (1 + max |plain|) -- one
-    recurrence in float32, summed in another order (the plain version
-    telescopes decays through exp/log per chunk); bf16 outputs at 2^-7 x
-    (1 + max |plain|) -- both round a float32 result that differs only in
-    that order, so at most one bf16 step apart at the largest output."""
+
+def wkv6_edge_sweep(dev) -> None:
+    """The wkv6 kernels against the plain version at WKV_EDGES, both
+    input types, at phase c's tolerances."""
     import torch
     from repro_torch.kernels import ref, wkv6 as wk
+    worst = 0.0
+    for (B, H, T, K, V, st) in WKV_EDGES:
+        for dt in (torch.bfloat16, torch.float32):
+            r, k, v, w, u, s0 = _wkv6_inputs(dev, B, T, dt, state=st,
+                                             seed=T + K + V, H=H, K=K, V=V)
+            out, s_fin = wk.wkv6_cuda(r, k, v, w, u, s0)
+            if T == 0:
+                want = out.new_zeros(out.shape)
+                s_want = s0 if st else torch.zeros_like(s_fin)
+            else:
+                want, s_want = ref.wkv6_chunked_ref(
+                    *(t.reshape(B, H, *t.shape[1:]) for t in (r, k, v, w)),
+                    u, None if s0 is None else s0.reshape(B, H, K, V))
+            torch.cuda.synchronize()
+            tol = (2.0 ** -7 if dt == torch.bfloat16 else 1e-5) * (
+                1 + (float(want.float().abs().max()) if want.numel() else 0))
+            s_tol = 1e-5 * (1 + float(s_want.abs().max()))
+            err = max_err(out, want.reshape(out.shape)) if out.numel() \
+                else 0.0
+            s_err = max_err(s_fin, s_want.reshape(s_fin.shape))
+            worst = max(worst, err / tol, s_err / s_tol)
+            if err > tol or s_err > s_tol:
+                raise AssertionError(
+                    f"wkv6 edge B {B} H {H} T {T} K {K} V {V} S_0 {st} "
+                    f"{dt}: out {err} (tol {tol}), state {s_err} (tol "
+                    f"{s_tol})")
+    print(f"[c] wkv6: {len(WKV_EDGES)} edge shapes x 2 types agree with "
+          f"the plain version (largest err / tol {worst:.3g})", flush=True)
+    # S_0 and S_T may alias (an in-place step): through the C entry point
+    # with one state buffer, both routes, bit-equal to the separate buffers
+    from repro_torch.kernels._launch import stream_ptr
+    from repro_torch.kernels.plan import wkv6_plan
+    for B, T in ((4, 1), (1, 37)):
+        r, k, v, w, u, s0 = _wkv6_inputs(dev, B, T, torch.bfloat16,
+                                         state=True, seed=5)
+        want, s_want = wk.wkv6_cuda(r, k, v, w, u, s0)
+        BH = B * WKV_H
+        p = wkv6_plan(T, WKV_K, WKV_K, BH, 4)
+        out, s = torch.empty_like(want), s0.clone()
+        err = wk._lib().repro_wkv6(
+            1, r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), s.data_ptr(), out.data_ptr(), s.data_ptr(), BH,
+            WKV_H, T, WKV_K, WKV_K, p.route_code, p.chunk, p.sub, p.kk,
+            p.vb, p.vec, p.grid[0], p.smem_bytes, p.blocks_per_sm,
+            stream_ptr(dev))
+        torch.cuda.synchronize()
+        if err or not (torch.equal(out, want) and torch.equal(s, s_want)):
+            raise AssertionError(f"wkv6 in place ({p.route}, T {T}) differs "
+                                 f"from separate state buffers (err {err})")
+    print("[c] wkv6: in-place state (S_0 = S_T) bit-equal on both routes",
+          flush=True)
+
+
+def wkv6_rows(dev, report) -> dict:
+    """The wkv6 kernels against their plain version (the chunked form the
+    model's reference runs) at rwkv6-7b's path shapes, in bf16 (the path)
+    and float32, against the sequential oracle at strong decays in both,
+    and at edge shapes.  Each shape is timed as a single call, as calls
+    queued back to back, and as calls replayed from a CUDA graph (device
+    time alone), beside a one-element kernel timed the same two ways (the
+    launch floor).  Returns the serving prefill's, the decode's and the
+    float32 long prefill's numbers for the JSON line.
+
+    Tolerances: float32 outputs at 1e-5 x (1 + max |plain|) -- one
+    recurrence in float32, summed in another order; bf16 outputs at 2^-7
+    x (1 + max |plain|) -- both round a float32 result to bf16, at most
+    one bf16 step apart at the largest output (the kernel's output
+    products round their operands to TF32, ~2^-10 a term); the final
+    state at 1e-5 x (1 + max |S|) for both types."""
+    import torch
+    from repro_torch.kernels import ref, wkv6 as wk
+    from repro_torch.kernels.plan import wkv6_plan
 
     def views(B, r, k, v, w, s0):
         """(BH, T, .) rows as the plain version's (B, H, T, .)."""
@@ -878,10 +1002,22 @@ def wkv6_rows(dev, report) -> None:
         rb, kb, vb, wb, sb = views(B, r, k, v, w, s0)
         return ref.wkv6_chunked_ref(rb, kb, vb, wb, u, sb)
 
+    one = torch.zeros(1, device=dev)
+    floor_q = time_queued_ms(lambda: one.add_(1.0))
+    floor_g = time_graph_ms(lambda: one.add_(1.0))
+    print(f"[c] launch floor: a one-element kernel {floor_q * 1e3:.2f} us "
+          f"queued, {floor_g * 1e3:.2f} us from a graph", flush=True)
+    extra = {"launch_floor": {"queued_ms": floor_q, "graph_ms": floor_g}}
     for label, (B, T) in WKV_SHAPES.items():
         state = T == 1
-        for dt in ((torch.bfloat16, torch.float32) if T > 1
-                   else (torch.bfloat16,)):
+        p = wkv6_plan(T, WKV_K, WKV_K, B * WKV_H, 4)
+        print(f"[c] plan wkv6 {label} B {B} T {T}: {p.route}, chunk "
+              f"{p.chunk}, sub-chunk {p.sub}, head padded to {p.kk}, "
+              f"{p.vb} columns a block ({p.vec} a decode thread), grid "
+              f"{p.grid} = {p.blocks} blocks of {p.threads} threads, "
+              f"{p.smem_bytes} B shared, {p.blocks_per_sm} an SM",
+              flush=True)
+        for dt in (torch.bfloat16, torch.float32):
             r, k, v, w, u, s0 = _wkv6_inputs(dev, B, T, dt, state=state)
             out, s_fin = wk.wkv6_cuda(r, k, v, w, u, s0)
             want, s_want = plain(B, r, k, v, w, u, s0)
@@ -891,7 +1027,12 @@ def wkv6_rows(dev, report) -> None:
             err = max_err(out, want.reshape(out.shape))
             s_err = max_err(s_fin, s_want.reshape(s_fin.shape))
             s_tol = 1e-5 * (1 + float(s_want.abs().max()))
-            ms = time_ms(lambda: wk.wkv6_cuda(r, k, v, w, u, s0), 20)
+
+            def call():
+                return wk.wkv6_cuda(r, k, v, w, u, s0)
+            ms = time_ms(call, 20)
+            q_ms = time_queued_ms(call)
+            g_ms = time_graph_ms(call)
             plain_ms = time_ms(lambda: plain(B, r, k, v, w, u, s0))
             bnd = _wkv6_bound(B, T, r.element_size(), state)
             name = str(dt).split(".")[-1]
@@ -902,43 +1043,58 @@ def wkv6_rows(dev, report) -> None:
                                      f"the plain version ({s_err} > "
                                      f"{s_tol})")
             if label == "long prefill" and dt == torch.bfloat16:
-                report("wkv6", "src/repro_torch/csrc/wkv6.cu",
-                       "src/repro/kernels/wkv6.py:71", err, tol, ms,
-                       plain_ms, None, bnd)
-                continue
+                repeat_equal("wkv6 long prefill out", out, lambda: call()[0])
+                repeat_equal("wkv6 long prefill state", s_fin,
+                             lambda: call()[1])
             print(f"[c] {tag}: max_abs_err={err:.3e} (tol {tol:.3e}), "
-                  f"state {s_err:.3e} (tol {s_tol:.3e}); kernel {ms:.4f} "
-                  f"ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms "
-                  f"({bnd[1]})", flush=True)
+                  f"state {s_err:.3e} (tol {s_tol:.3e}); kernel {ms:.4f} ms "
+                  f"single, {q_ms:.4f} queued, {g_ms:.4f} from a graph "
+                  f"(host share of a single call {ms - g_ms:.4f}); plain "
+                  f"{plain_ms:.3f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}), "
+                  f"graph / bound {g_ms / bnd[0]:.2f}", flush=True)
             if err > tol:
                 raise AssertionError(f"{tag}: kernel disagrees with its "
                                      f"plain version ({err} > {tol})")
+            nums = dict(max_abs_err=err, state_err=s_err, ms=ms,
+                        queued_ms=q_ms, graph_ms=g_ms, plain_ms=plain_ms,
+                        bound_ms=bnd[0], bound_by=bnd[1], route=p.route)
+            if label == "long prefill" and dt == torch.bfloat16:
+                report("wkv6", "src/repro_torch/csrc/wkv6.cu",
+                       "src/repro/kernels/wkv6.py:71", err, tol, ms,
+                       plain_ms, None, bnd, queued_ms=q_ms, graph_ms=g_ms)
+            else:
+                extra[f"{label} {name}".replace(" ", "_")] = nums
             del r, k, v, w, out, want
 
-    # strong decays, float32, against the sequential oracle: the chunked
-    # plain form's exp(-cumsum(log w)) leaves float32's range once a
-    # 64-step chunk's mean log w is below about -1.39
+    # strong decays against the sequential oracle, in both types
     B, T = WKV_SHAPES["long prefill"]
-    for lo, hi in ((0.05, 0.999), (0.05, 0.25)):
-        r, k, v, w, u, _ = _wkv6_inputs(dev, B, T, torch.float32, lo, hi,
-                                        seed=1)
-        out, _ = wk.wkv6_cuda(r, k, v, w, u)
-        oracle_ms, want = time_once(lambda: ref.wkv6_chunk_ref(
-            *views(B, r, k, v, w, None)[:4], u))
-        chunked, _ = plain(B, r, k, v, w, u, None)
-        err = max_err(out, want.reshape(out.shape))
-        tol = 1e-5 * (1 + float(want.abs().max()))
-        finite = bool(torch.isfinite(chunked).all())
-        c_err = max_err(chunked, want) if finite else float("nan")
-        print(f"[c] wkv6 strong decays w in [{lo}, {hi}] T {T} float32: "
-              f"max_abs_err={err:.3e} against the sequential oracle (tol "
-              f"{tol:.3e}, oracle {oracle_ms:.1f} ms); chunked plain form "
-              f"finite {finite}, its error {c_err:.3e}", flush=True)
-        if err > tol or not bool(torch.isfinite(out).all()):
-            raise AssertionError(f"wkv6 at strong decays [{lo}, {hi}] "
-                                 f"disagrees with the oracle ({err})")
-        del r, k, v, w, out, want, chunked
+    for lo, hi, zero in WKV_DECAYS:
+        for dt in (torch.bfloat16, torch.float32):
+            r, k, v, w, u, _ = _wkv6_inputs(dev, B, T, dt, lo, hi, seed=1,
+                                            zero_every=zero)
+            out, _ = wk.wkv6_cuda(r, k, v, w, u)
+            oracle_ms, want = time_once(lambda: ref.wkv6_chunk_ref(
+                *views(B, r, k, v, w, None)[:4], u))
+            chunked, _ = plain(B, r, k, v, w, u, None)
+            err = max_err(out, want.reshape(out.shape))
+            tol = (2.0 ** -7 if dt == torch.bfloat16 else 1e-5) * (
+                1 + float(want.float().abs().max()))
+            finite = bool(torch.isfinite(chunked).all())
+            c_err = max_err(chunked, want) if finite else float("nan")
+            name = str(dt).split(".")[-1]
+            print(f"[c] wkv6 decays w in [{lo}, {hi}]"
+                  f"{f', every {zero}th step 0' if zero else ''} T {T} "
+                  f"{name}: max_abs_err={err:.3e} against the sequential "
+                  f"oracle (tol {tol:.3e}, oracle {oracle_ms:.1f} ms); "
+                  f"chunked plain form finite {finite}, its error "
+                  f"{c_err:.3e}", flush=True)
+            if err > tol or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"wkv6 at decays [{lo}, {hi}] {name} "
+                                     f"disagrees with the oracle ({err})")
+            del r, k, v, w, out, want, chunked
+    wkv6_edge_sweep(dev)
     torch.cuda.empty_cache()
+    return extra
 
 
 def phase_d(dev) -> None:
@@ -1372,9 +1528,11 @@ def main() -> int:
     print(f"[i] total {time.perf_counter() - t_start:.1f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "queued_ms", "library_queued_ms",
+            "library_ms", "queued_ms", "library_queued_ms", "graph_ms",
             "library_parity_ms", "two_pass_ms", "batched", "float32",
-            "verify", "decode_chunk")
+            "verify", "decode_chunk", "launch_floor",
+            "serving_prefill_bfloat16", "serving_prefill_float32",
+            "decode_bfloat16", "decode_float32", "long_prefill_float32")
     print(json.dumps({"kernels": [{k: rows[n][k] for k in keys
                                    if k in rows[n]}
                                   for n in ("matmul", "coded_matvec",

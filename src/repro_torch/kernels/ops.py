@@ -239,7 +239,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     """Batched WKV6 with the reference's signature and result: r, k, w
     (BH, T, K), v (BH, T, V), one shared u (K,) → out (BH, T, V) in v's
     dtype.  ``chunk`` is the plain version's chunk (CPU tensors); the
-    kernel walks time step by step and needs no padding."""
+    kernel pads a ragged chunk itself."""
     K = r.shape[-1]
     out, _ = wkv6_dev(r.contiguous(), k.contiguous(), v.contiguous(),
                       w.contiguous(), u.float().reshape(1, K).contiguous(),

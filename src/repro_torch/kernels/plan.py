@@ -1,7 +1,8 @@
 """Launch plans of the port's kernels: the GEMMs (``csrc/matmul.cu``,
 ``csrc/mds_encode_gemm.cu``: which tile configuration runs a product, its
-grid, and how far K is split) and the skinny products of
-``csrc/coded_matvec.cu`` (route, grid, rows per block, X slab).
+grid, and how far K is split), the skinny products of
+``csrc/coded_matvec.cu`` (route, grid, rows per block, X slab) and the
+WKV recurrence of ``csrc/wkv6.cu`` (route, chunk, grid).
 
 Plain Python, so the CPU tests can check a plan at the path's shapes; the
 C entry points take the plan's numbers as arguments, check them and derive
@@ -26,7 +27,7 @@ import functools
 from typing import Tuple
 
 __all__ = ["TileConfig", "GemmPlan", "CONFIGS", "gemm_plan", "MatvecPlan",
-           "matvec_plan"]
+           "matvec_plan", "Wkv6Plan", "wkv6_plan"]
 
 #: no slab shorter than this many K elements (the second pass and the
 #: pipeline's fill cost more than a shorter slab saves)
@@ -175,3 +176,87 @@ def matvec_plan(esz: int, R: int, K: int, C: int, batch: int = 1,
     return MatvecPlan("staged" if staged else "direct", cc, (per_task, batch),
                       rows, slab if staged else 0, MV_BLOCKS_PER_SM,
                       32 * MV_WARPS)
+
+
+# -- wkv6 (csrc/wkv6.cu) ----------------------------------------------------
+#
+# "decode" (T <= 1): a block streams one row's state, up to WKV_DEC_COLS
+# columns, WKV_DEC_THREADS threads, ``vec`` columns a thread (16-byte rows
+# when V is a multiple of 4 and the state is 16-byte aligned).  "chunked"
+# (T > 1): a block of 8 producer and 8 consumer warps per (row, WKV_VB
+# state columns) walks time in chunks of WKV_CHUNK steps, the producers one
+# chunk ahead; pairs of steps in different sub-chunks of WKV_SUB steps
+# factor through a reference step between them (levels 8 and 4, on the
+# tensor cores), the pairs inside one are FMA terms of the prep.  The head
+# size is padded to ``kk`` = 64 or 128 (the compiled sizes), which sets
+# the block's shared memory; one block an SM.
+
+WKV_CHUNK = 16
+WKV_SUB = 4
+WKV_VB = 32
+WKV_THREADS = 512
+WKV_DEC_THREADS = 256
+WKV_DEC_COLS = 256
+WKV_DEC_BLOCKS_PER_SM = 4
+WKV_K_MAX = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class Wkv6Plan:
+    route: str              # "decode" | "chunked"
+    chunk: int              # steps a chunk (1 for decode)
+    sub: int                # steps a sub-chunk (1 for decode)
+    kk: int                 # head size the kernel is compiled for
+    vb: int                 # state columns a block
+    vec: int                # state columns a decode thread (1 for chunked)
+    grid: Tuple[int, int]   # (column blocks, rows B * H)
+    threads: int
+    smem_bytes: int
+    blocks_per_sm: int      # residency the grid is sized for
+
+    @property
+    def route_code(self) -> int:
+        return 0 if self.route == "decode" else 1
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+
+def _wkv6_chunked_smem(kk: int) -> int:
+    """Bytes of the chunked block's shared tiles (csrc/wkv6.cu): two chunk
+    buffers (six [kk] x [chunk + 8] operand tiles, v, Aᵀ, the bonus, the
+    chunk's decays and the producer warps' FMA partial sums) and two copies
+    of the state slice."""
+    c = WKV_CHUNK
+    cbuf = (6 * kk * (c + 8) + c * (WKV_VB + 4) + c * (c + 4) + c + kk
+            + 8 * WKV_SUB * (6 + WKV_SUB))
+    return 4 * (2 * cbuf + 2 * kk * (WKV_VB + 8))
+
+
+@functools.lru_cache(maxsize=256)
+def wkv6_plan(T: int, K: int, V: int, BH: int, vec: int = 4) -> Wkv6Plan:
+    """The launch of WKV6 over ``BH`` rows of ``T`` steps, head size K,
+    V state columns.  ``vec`` is the widest state access the caller's
+    layout allows a decode thread (4 when V is a multiple of 4 and the
+    state 16-byte aligned, else 1).  One plan serves both input types:
+    float32 inputs take the same route with their products split three
+    ways."""
+    if K <= 0 or K % 8 or K > WKV_K_MAX or BH <= 0 or BH > 65535 or V <= 0 \
+            or T < 0:
+        raise ValueError(f"wkv6_plan: bad shape T={T} K={K} V={V} BH={BH} "
+                         f"(K a multiple of 8 up to {WKV_K_MAX}, BH at most "
+                         f"65535)")
+    if T <= 1:
+        vec = 4 if vec == 4 and V % 4 == 0 else 1
+        cols = min(_cdiv(V, vec) * vec, WKV_DEC_COLS if vec == 4 else 64)
+        while WKV_DEC_THREADS % (cols // vec):
+            cols -= vec
+        groups = WKV_DEC_THREADS // (cols // vec)
+        return Wkv6Plan("decode", 1, 1, K, cols, vec, (_cdiv(V, cols), BH),
+                        WKV_DEC_THREADS, 4 * (4 * K + cols + groups * cols),
+                        WKV_DEC_BLOCKS_PER_SM)
+    kk = 64 if K <= 64 else 128
+    return Wkv6Plan("chunked", WKV_CHUNK, WKV_SUB, kk, WKV_VB, 1,
+                    (_cdiv(V, WKV_VB), BH), WKV_THREADS,
+                    _wkv6_chunked_smem(kk), 1)

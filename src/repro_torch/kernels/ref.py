@@ -20,7 +20,7 @@ import torch
 __all__ = ["matmul_ref", "coded_matvec_ref", "coded_matvec_batch_ref",
            "mds_encode_ref", "threefry2x32_ref", "counter_parity_rows_ref",
            "parity_contract_ref", "gen_parity_ref", "wkv6_chunk_ref",
-           "wkv6_chunked_ref"]
+           "wkv6_chunked_ref", "wkv6_subchunk_ref"]
 
 _M32 = 0xFFFFFFFF
 _TF_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -206,3 +206,76 @@ def wkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         outs.append(o)
     out = torch.cat(outs, dim=2)[:, :, :T]
     return out.to(v.dtype), S
+
+
+def _block_products(w: torch.Tensor, L: int):
+    """Exclusive prefix and suffix products of ``w`` (..., C, K) inside
+    each aligned block of L steps along the time axis: (Π_{start<=τ<t} w,
+    Π_{t<τ<=end} w)."""
+    *lead, C, K = w.shape
+    b = w.reshape(*lead, C // L, L, K)
+    one = torch.ones_like(b[..., :1, :])
+    pre = torch.cat([one, torch.cumprod(b[..., :-1, :], dim=-2)], dim=-2)
+    suf = torch.cat([torch.flip(torch.cumprod(torch.flip(b[..., 1:, :], [-2]),
+                                              dim=-2), [-2]), one], dim=-2)
+    return pre.reshape(w.shape), suf.reshape(w.shape)
+
+
+def wkv6_subchunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      w: torch.Tensor, u: torch.Tensor,
+                      state: Optional[torch.Tensor] = None, chunk: int = 16):
+    """The chunked form ``csrc/wkv6.cu`` runs for T > 1, in float32 torch
+    (for tests: nothing on the main path calls it).
+
+    r, k, w (B, H, T, K); v (B, H, T, V); u (H, K); ``state`` (B, H, K, V)
+    or None for zeros.  Returns (out (B, H, T, V) in v's dtype, final state
+    (B, H, K, V) float32), as :func:`wkv6_chunked_ref` does.  Decays are
+    clamped to w >= 1e-12 (the reference's clamp before its log), and T is
+    padded to the chunk (a power of two) with w = 1.  Per chunk: the
+    carry-in ``(r ⊙ F) S`` and the state step ``diag(Π w) S + (k ⊙ G)ᵀ v``
+    (F, G the exclusive prefix and suffix products over the chunk); the
+    strict-causal term A[t, s] = Σ_k r_t k_s Π_{s<τ<t} w_τ as one product
+    per level L = C/2, ..., 1: the pairs whose steps first fall into
+    different halves of an aligned 2L-block factor through the last step
+    of s's half, as (r ⊙ prefix within t's half)(k ⊙ suffix within s's
+    half)ᵀ.  Every factor is a product of decays, each <= 1: no growth
+    factor e^{-Σ log w}, so it holds at any decay.
+    """
+    if chunk & (chunk - 1) or chunk < 2:
+        raise ValueError(f"wkv6_subchunk_ref: chunk {chunk} is not a power "
+                         f"of two")
+    B, H, T, K = r.shape
+    V, dtype = v.shape[-1], v.dtype
+    pad = (-T) % chunk
+    r, k, v = (torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+               for t in (r, k, v))
+    w = torch.nn.functional.pad(torch.clamp(w.float(), min=1e-12),
+                                (0, 0, 0, pad), value=1.0)
+    u = u.float()[None, :, None, :]
+    S = (torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device)
+         if state is None else state.float())
+    t_idx = torch.arange(chunk, device=r.device)
+    diff = t_idx[:, None] ^ t_idx[None, :]
+    lower = t_idx[:, None] > t_idx[None, :]
+    outs = []
+    for c in range(r.shape[2] // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        rc, kc, vc, wc = (t[:, :, sl] for t in (r, k, v, w))
+        fwd, bwd = _block_products(wc, chunk)
+        o = torch.einsum("bhtk,bhkv->bhtv", rc * fwd, S)
+        A = torch.zeros(rc.shape[:3] + (chunk,), dtype=torch.float32,
+                        device=r.device)
+        L = chunk // 2
+        while L >= 1:
+            f, g = _block_products(wc, L)
+            level = lower & (diff >= L) & (diff < 2 * L)
+            A = A + torch.where(level, torch.einsum(
+                "bhtk,bhsk->bhts", rc * f, kc * g), A.new_zeros(()))
+            L //= 2
+        bonus = torch.einsum("bhtk,bhtk->bht", rc * u, kc)
+        o = o + torch.einsum("bhts,bhsv->bhtv", A, vc) + bonus[..., None] * vc
+        S = (torch.prod(wc, dim=2)[..., None] * S
+             + torch.einsum("bhtk,bhtv->bhkv", kc * bwd, vc))
+        outs.append(o)
+    out = torch.cat(outs, dim=2)[:, :, :T]
+    return out.to(dtype), S

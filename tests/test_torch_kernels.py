@@ -531,3 +531,109 @@ def test_matvec_plan_rejects_what_the_kernel_cannot_take():
         matvec_plan(2, 10, 8, 1)            # no half-precision kernel
     with pytest.raises(ValueError):
         matvec_plan(4, 0, 8, 1)
+
+
+# -- launch plan and wrapper of wkv6 (kernels/plan.py, kernels/wkv6.py) ------
+
+#: (T, K, V, B*H): chip_smoke.py's rwkv6-7b shapes (long prefill, serving
+#: prefill, decode), the smoke model's head, and its edge shapes
+WKV_PLAN_SHAPES = {
+    "long prefill": (4096, 64, 64, 64),
+    "serving prefill": (32, 64, 64, 256),
+    "decode": (1, 64, 64, 256),
+    "smoke prefill": (16, 16, 16, 8),
+    "ragged": (37, 72, 20, 2),
+    "decode ragged V": (1, 8, 33, 3),
+    "decode V 6": (1, 64, 6, 6),
+    "no steps": (0, 16, 8, 4),
+    "wide V": (5, 128, 300, 2),
+}
+
+
+@pytest.mark.parametrize("label", sorted(WKV_PLAN_SHAPES))
+def test_wkv6_plan_covers_every_row_and_column_once(label):
+    """The grid's column blocks take every state column of every row
+    exactly once, within CUDA's limits and the card's shared memory."""
+    from repro_torch.kernels.plan import wkv6_plan
+    T, K, V, BH = WKV_PLAN_SHAPES[label]
+    p = wkv6_plan(T, K, V, BH, 4)
+    gx, gy = p.grid
+    assert gy == BH <= 65535 and p.threads <= 1024
+    cols = [c for x in range(gx) for c in range(x * p.vb,
+                                                min((x + 1) * p.vb, V))]
+    assert cols == list(range(V))
+    assert (gx - 1) * p.vb < V
+    assert p.smem_bytes <= 227 * 1024 and p.blocks_per_sm >= 1
+    if p.route == "decode":
+        assert p.vb % p.vec == 0 and p.threads % (p.vb // p.vec) == 0
+        assert p.vec == 1 or V % 4 == 0
+    else:
+        assert p.kk in (64, 128) and K <= p.kk and (p.kk == 64) == (K <= 64)
+
+
+@pytest.mark.parametrize("T,route", [(0, "decode"), (1, "decode"),
+                                     (2, "chunked"), (17, "chunked"),
+                                     (32, "chunked"), (4096, "chunked")])
+def test_wkv6_plan_routes(T, route):
+    """T <= 1 streams the state (the decode step); longer runs take the
+    chunked tensor-core route, 16 steps a chunk in sub-chunks of 4.  The
+    plan takes no input type, so bf16 inputs never reach a float32-only
+    route: both types run these two."""
+    import inspect
+
+    from repro_torch.kernels.plan import wkv6_plan
+    assert "dtype" not in inspect.signature(wkv6_plan).parameters
+    p = wkv6_plan(T, 64, 64, 256, 4)
+    assert p.route == route
+    assert (p.chunk, p.sub) == ((16, 4) if route == "chunked" else (1, 1))
+
+
+def test_wkv6_plan_rejects_what_the_kernel_cannot_take():
+    from repro_torch.kernels.plan import wkv6_plan
+    for shape in ((8, 12, 8, 4), (8, 136, 8, 4), (8, 64, 8, 65536),
+                  (-1, 64, 8, 4), (8, 64, 0, 4)):
+        with pytest.raises(ValueError):
+            wkv6_plan(*shape)
+
+
+def _wkv_rows(BH=4, T=5, K=16, V=8, dt=torch.bfloat16):
+    return [torch.zeros((BH, T, K), dtype=dt), torch.zeros((BH, T, K),
+                                                           dtype=dt),
+            torch.zeros((BH, T, V), dtype=dt), torch.ones((BH, T, K),
+                                                          dtype=dt),
+            torch.zeros((2, K))]
+
+
+@pytest.mark.parametrize("case,match", [
+    ("half", "float32 or bfloat16"),
+    ("mixed types", "share one type"),
+    ("u float64", "share one type"),
+    ("k shape", "shapes differ"),
+    ("heads", "shapes differ"),
+    ("head size", "multiple of 8"),
+    ("state shape", "state must be"),
+    ("cpu tensors", "expected a tensor on"),
+])
+def test_wkv6_kernel_wrapper_raises_and_never_falls_back(case, match):
+    """The kernel's wrapper refuses what the kernel cannot take, and a
+    well-formed call on CPU tensors raises at the device check instead of
+    taking the plain version (``wkv6_dev`` is the entry that does)."""
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+    r, k, v, w, u = _wkv_rows()
+    state = None
+    if case == "half":
+        r, k, v, w = (t.half() for t in (r, k, v, w))
+    elif case == "mixed types":
+        k = k.float()
+    elif case == "u float64":
+        u = u.double()
+    elif case == "k shape":
+        k = k[:, :4]
+    elif case == "heads":
+        u = torch.zeros((3, 16))
+    elif case == "head size":
+        r, k, v, w, u = _wkv_rows(K=12)
+    elif case == "state shape":
+        state = torch.zeros((4, 16, 9))
+    with pytest.raises(ValueError, match=match):
+        wkv6_cuda(r, k, v, w, u, state)

@@ -186,6 +186,42 @@ def test_initial_state_continues_the_sequence(T2):
     _close(s2.numpy(), s_all, SAME)
 
 
+@pytest.mark.parametrize("T,chunk,H", [(64, 16, 2), (37, 16, 1), (40, 8, 2)])
+def test_subchunk_ref_matches_model_wkv(T, chunk, H):
+    """The kernel's factorisation (``ref.wkv6_subchunk_ref``: chunks of
+    ``chunk`` steps, pairs through a reference step at each level) against
+    the model's chunked WKV at ordinary decays: output and final state,
+    with a ragged last chunk."""
+    B, K, V = 2, 16, 16
+    r, k, v, w = _wkv_inputs((B, H, T, K), V, seed=T + chunk + H)
+    u = np.random.default_rng(T + 1).normal(size=(H, K)).astype(np.float32)
+    jo, js = jrwkv.wkv6_chunked(*map(jnp.asarray, (r, k, v, w, u)))
+    to, ts = tref.wkv6_subchunk_ref(*_t(r, k, v, w, u), chunk=chunk)
+    _close(to.numpy(), jo, SAME)
+    _close(ts.numpy(), js, SAME)
+
+
+@pytest.mark.parametrize("lo,hi,zero_every", [(0.05, 0.25, 0),
+                                              (0.0, 1e-11, 3),
+                                              (0.0, 0.0, 0)])
+def test_subchunk_ref_holds_at_strong_decays(lo, hi, zero_every):
+    """Strong decays, decays below the 1e-12 clamp and exact zeros, from an
+    initial state: the kernel's factorisation stays at float32 accuracy
+    against a float64 recurrence (every factor is a product of decays, each
+    <= 1), at decays where the model's chunked form overflows."""
+    H, T, K = 2, 96, 16
+    r, k, v, w = _wkv_inputs((1, H, T, K), K, seed=7, lo=lo, hi=hi)
+    if zero_every:
+        w[..., ::zero_every, :] = 0.0
+    rng = np.random.default_rng(8)
+    u = rng.normal(size=(H, K)).astype(np.float32)
+    s0 = rng.normal(size=(1, H, K, K)).astype(np.float32)
+    want, s_want = _wkv_f64(r, k, v, w, u[None], s0)
+    got, s_got = tref.wkv6_subchunk_ref(*_t(r, k, v, w, u, s0))
+    _close(got.numpy(), want, SAME)
+    _close(s_got.numpy(), s_want, SAME)
+
+
 # ---------------------------------------------------------------------------
 # 4. The mixers on all three branches
 # ---------------------------------------------------------------------------

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time the port's float32 GEMM core, float64 encode, ``coded_matvec`` and
-counter-derived parity kernels as built from several checkouts, side by
-side on one card.
+"""Time the port's float32 GEMM core, float64 encode, ``coded_matvec``,
+counter-derived parity and WKV kernels as built from several checkouts,
+side by side on one card.
 
     python3 tools/kernel_variants.py NAME=DIR [NAME=DIR ...] [--rounds N]
-        [--only parity] [--out FILE]
+        [--only parity|wkv6] [--out FILE]
 
 Each DIR is a checkout of this repo (``.`` for this one; another commit
 unpacked with ``git archive``, or a copy with the change to be tried).
@@ -35,7 +35,14 @@ times in phase c, beside the same-work PyTorch call:
   two-pass path it replaces (counter-row chunks of 2^28 entries, float64
   cast, torch.matmul); and
   each kernel's instructions per entry in its main loop, by opcode and by
-  pipe, from ``cuobjdump -sass`` of the built library.
+  pipe, from ``cuobjdump -sass`` of the built library;
+* with ``--only wkv6`` (which builds only ``wkv6``), the WKV rows of
+  phase c at rwkv6-7b's heads: the long prefill B 1 x T 4096 in bf16 and
+  float32, the serving prefill B 4 x T 32 and the decode step B 4 x T 1
+  with S_0 in bf16, each also replayed from a CUDA graph (device time
+  alone), and each WKV kernel's instructions by pipe.  A checkout without
+  ``wkv6_plan`` (an older parent) is timed through its own
+  ``chip_smoke.py`` instead.
 
 Each round takes the cases in turn and the variants in a rotated order.
 Prints each variant's registers and spills (ptxas), its largest
@@ -103,6 +110,11 @@ class Variant:
     def load(self) -> None:
         for s in self.sources:
             self.libs[s] = ctypes.CDLL(str(self.dir / f"lib{s}.so"))
+        if "wkv6" in self.libs:
+            self.libs["wkv6"].repro_wkv6.argtypes = [I] + [P] * 8 + [I] * 14 \
+                + [P]
+        if "mds_encode" not in self.libs:
+            return
         if "matmul" in self.libs:
             self.libs["matmul"].repro_matmul_f32.argtypes = [
                 P, P, P, P, I, I, I, I, I, I, P]
@@ -155,6 +167,7 @@ PIPES = {
             "LOP", "FLO", "POPC", "IABS"),
     "fma": ("IMAD", "FFMA", "FADD", "FMUL", "VIADD", "FMNMX3"),
     "fp64": ("DFMA", "DADD", "DMUL"),
+    "tensor": ("HMMA", "DMMA"),
     "conversion": ("I2F", "I2FP", "F2F", "F2I", "F2FP", "MUFU"),
     "memory": ("LDG", "STG", "LDS", "STS", "LD", "ST", "LDC", "SHFL",
                "ATOM", "RED"),
@@ -261,6 +274,27 @@ def sass_per_entry(v: "Variant", cuobjdump: Path) -> dict:
     return out
 
 
+def wkv6_sass(v: "Variant", cuobjdump: Path) -> dict:
+    """Instructions of each WKV kernel, by pipe, from the whole function
+    (its loops run a data-dependent number of chunks)."""
+    out = {}
+    for name, insns in sass_functions(v.dir / "libwkv6.so",
+                                      cuobjdump).items():
+        m = re.search(r"wkv6_(chunked|decode)_kernelI(13__nv_bfloat16|f)"
+                      r"Li(\d+)", name)
+        if not m:
+            continue
+        label = (f"{m.group(1)} {'bf16' if m.group(2) != 'f' else 'f32'} "
+                 f"{m.group(3)}")
+        pipes = {}
+        for _, op, _ in insns:
+            pipes[_pipe(op)] = pipes.get(_pipe(op), 0) + 1
+        out[label] = dict(kernel=name, insns=len(insns),
+                          pipes=dict(sorted(pipes.items(),
+                                            key=lambda kv: -kv[1])))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -269,9 +303,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("variants", nargs="+", metavar="NAME=DIR")
     ap.add_argument("--rounds", type=int, default=5)
-    ap.add_argument("--only", choices=("all", "parity"), default="all",
+    ap.add_argument("--only", choices=("all", "parity", "wkv6"),
+                    default="all",
                     help="parity: build mds_encode alone and run only the "
-                         "parity cases")
+                         "parity cases; wkv6: build wkv6 alone and run only "
+                         "the WKV cases")
     ap.add_argument("--out", type=Path, default=OUT / "kernel_variants.json")
     args = ap.parse_args()
     import numpy as np
@@ -282,7 +318,8 @@ def main() -> int:
     from repro_torch.kernels._launch import stream_ptr
     from repro_torch.kernels.mds_encode import _as_u32
 
-    sources = ("mds_encode",) if args.only == "parity" else SOURCES
+    sources = {"parity": ("mds_encode",), "wkv6": ("wkv6",)}.get(
+        args.only, SOURCES)
     variants = [Variant(n, Path(d), sources) for n, d in
                 (v.split("=", 1) for v in args.variants)]
     dev = torch.device("cuda:0")
@@ -308,6 +345,12 @@ def main() -> int:
     for v in variants:
         v.load()
         print(f"[ptxas] {v.name}: {v.ptxas()}", flush=True)
+        if "wkv6" in v.sources:
+            record["sass"][v.name] = wkv6_sass(v, cuobjdump)
+            for label, r in record["sass"][v.name].items():
+                print(f"[sass] {v.name} {label}: {r['insns']} instructions; "
+                      f"by pipe {r['pipes']}", flush=True)
+            continue
         record["sass"][v.name] = sass_per_entry(v, cuobjdump)
         for label, r in record["sass"][v.name].items():
             print(f"[sass] {v.name} {label}: {r['per_entry']} instructions "
@@ -406,10 +449,10 @@ def main() -> int:
         return call
 
     def run(label: str, make, library=None, queued=False, clocks=False,
-            iters=5, calls=None, entries=None):
+            iters=5, calls=None, entries=None, graph=False):
         """Time ``make(v)()`` for every variant, or the given ``calls``
-        (and ``library``), over the rounds; record and print the
-        summary."""
+        (and ``library``), over the rounds (with ``graph``, also replayed
+        from a CUDA graph); record and print the summary."""
         calls = calls or {v.name: make(v) for v in variants}
         want = library() if library else next(iter(calls.values()))()
         errs = {}
@@ -422,11 +465,14 @@ def main() -> int:
         names = list(calls)
         times = {k: [] for k in names}
         qtimes = {k: [] for k in names}
+        gtimes = {k: [] for k in names}
         for r in range(args.rounds):
             for k in names[r % len(names):] + names[:r % len(names)]:
                 times[k].append(cs.time_ms(calls[k], iters))
                 if queued:
                     qtimes[k].append(cs.time_queued_ms(calls[k]))
+                if graph:
+                    gtimes[k].append(cs.time_graph_ms(calls[k]))
         print(f"[{label}]", flush=True)
         rec = {}
         for k in names:
@@ -441,6 +487,12 @@ def main() -> int:
                               queued_hi=qs[-1])
                 line += (f", queued {rec[k]['queued_ms']:.3f} (range "
                          f"{qs[0]:.3f}-{qs[-1]:.3f})")
+            if graph:
+                gs = sorted(gtimes[k])
+                rec[k].update(graph_ms=gs[len(gs) // 2], graph_lo=gs[0],
+                              graph_hi=gs[-1])
+                line += (f", graph {rec[k]['graph_ms']:.4f} (range "
+                         f"{gs[0]:.4f}-{gs[-1]:.4f})")
             if k in errs:
                 line += f", diff/(1+max) {errs[k]:.2e}"
             if entries:
@@ -596,10 +648,59 @@ def main() -> int:
                 "two-pass": two_pass(variants[0], cdec, gcols, y)},
             queued=True, entries=DECODE_S * DECODE_KNOWN, iters=3)
 
+    def wkv6_cases() -> None:
+        types = {torch.float32: 0, torch.bfloat16: 1}
+        timed = [v for v in variants if hasattr(v.plan, "wkv6_plan")]
+        for v in variants:
+            if v not in timed:
+                print(f"[wkv6] {v.name}: no wkv6_plan in its plan.py (an "
+                      f"older entry point); time it through its own "
+                      f"chip_smoke.py", flush=True)
+        if not timed:
+            return
+
+        def call_of(v, r, k, vv, w, u, s0, out, s_out):
+            B_H, T, K = r.shape
+            V = vv.shape[-1]
+            p = v.plan.wkv6_plan(T, K, V, B_H, 4)
+            fn = v.libs["wkv6"].repro_wkv6
+            args_ = (types[r.dtype], r.data_ptr(), k.data_ptr(),
+                     vv.data_ptr(), w.data_ptr(), u.data_ptr(),
+                     None if s0 is None else s0.data_ptr(), out.data_ptr(),
+                     s_out.data_ptr(), B_H, cs.WKV_H, T, K, V, p.route_code,
+                     p.chunk, p.sub, p.kk, p.vb, p.vec, p.grid[0],
+                     p.smem_bytes, p.blocks_per_sm)
+
+            def call():
+                # the current stream: a CUDA graph captures on its own
+                check(fn(*args_, stream_ptr(dev)), "wkv6")
+                return out
+            return call
+
+        for label, B, T, dt in (("long prefill", 1, 4096, torch.bfloat16),
+                                ("long prefill", 1, 4096, torch.float32),
+                                ("serving prefill", 4, 32, torch.bfloat16),
+                                ("decode", 4, 1, torch.bfloat16)):
+            r, k, vv, w, u, s0 = cs._wkv6_inputs(dev, B, T, dt,
+                                                 state=T == 1)
+            out = torch.empty((B * cs.WKV_H, T, cs.WKV_K), dtype=dt,
+                              device=dev)
+            s_out = torch.empty((B * cs.WKV_H, cs.WKV_K, cs.WKV_K),
+                                device=dev)
+            bnd = cs._wkv6_bound(B, T, r.element_size(), T == 1)
+            name = str(dt).split(".")[-1]
+            run(f"wkv6 {label} B {B} T {T} {name} (bound {bnd[0]:.4f} ms, "
+                f"{bnd[1]})", None, queued=True, graph=True, iters=20,
+                calls={v.name: call_of(v, r, k, vv, w, u, s0, out, s_out)
+                       for v in timed})
+
     differ = []
-    if args.only == "all":
-        gemm_cases()
-    parity_cases()
+    if args.only == "wkv6":
+        wkv6_cases()
+    else:
+        if args.only == "all":
+            gemm_cases()
+        parity_cases()
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(record, indent=1))
     return 1 if differ else 0
