@@ -81,6 +81,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -123,8 +125,22 @@ DECODE_KNOWN = L_HEAD - GEN_LANES
 L_PAPER = 10_000
 EXEC_DEAD = (7,)                  # the quickstart's straggler
 STREAM_TASKS = 200
+#: phase m's trial counts: the card's sampler and the numpy stream
+MC_TORCH_TRIALS, MC_NUMPY_TRIALS = 1_000_000, 100_000
 #: phase c's verify-path width: tasks per master in phase h (~200 / 4)
 VERIFY_TASKS = 50
+
+#: phase c's trunk shapes (phase l's packed stages of llama3.2-1b, one
+#: layer): rows of each stage's prefix (the sum of its matmuls' L) and
+#: the contraction width K, at the decode batch and at a prefill
+TRUNK_STAGES = {"q/k/v": (2048 + 512 + 512, 2048), "o": (2048, 2048),
+                "up/gate": (2 * 8192, 2048), "down": (2048, 8192)}
+TRUNK_COLS = (4, 32)
+#: phase c's trunk decode shapes (L, parity rows s): the known term
+#: R[par, known] @ y of a trunk key's frozen solve, s x (L - s); sizes of
+#: the 16-layer serve's probe at seed 0 (o: 635 of 2048; up: 4990 of
+#: 8192)
+TRUNK_DECODES = ((2048, 635), (8192, 4990))
 
 RWKV = "rwkv6-7b"
 #: phase j's runs (batch, prompt, generated tokens): the serving shape of
@@ -308,6 +324,7 @@ def phase_c(dev) -> dict:
                lambda: ops.coded_shard_matmul_batch(tiles, x)),
            library_queued_ms=time_queued_ms(lambda: torch.matmul(flat, x)))
     del tiles, flat, got, want, got32
+    rows["coded_matvec"]["trunk"] = trunk_matvec_rows(dev, gen)
 
     # -- coded_matvec, batched: the executor's 4 x (2L x L) . (L,) float64 -
     B4, Lp = 4, L_PAPER
@@ -575,6 +592,7 @@ def phase_c(dev) -> dict:
            two_pass_ms=two_ms)
     del got, want, two, y, kc, kj, dctrs_t, dcols_t
     torch.cuda.empty_cache()
+    rows["parity_contract"]["trunk"] = trunk_contract_rows(dev, gen, key)
 
     # -- gen_parity_matvec: phase e's parity lanes against resident W ------
     w = torch.randn((L_HEAD, D), generator=gen, device=dev) * 0.02
@@ -635,6 +653,97 @@ def phase_c(dev) -> dict:
     wkv6_extra = wkv6_rows(dev, report)
     rows["wkv6"].update(wkv6_extra)
     return rows
+
+
+def trunk_matvec_rows(dev, gen) -> dict:
+    """``coded_matvec`` at phase l's packed trunk stages (ragged stage
+    rows in 128-row tiles, K up to 8192), float64 sums, against its plain
+    version."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    out = {}
+    for stage, (n, K) in TRUNK_STAGES.items():
+        nt = -(-n // TILE)
+        tiles = torch.randn((nt, TILE, K), generator=gen, device=dev) * 0.02
+        flat = tiles.reshape(-1, K)
+        for C in TRUNK_COLS:
+            x = torch.randn((K, C), generator=gen, device=dev)
+            got = ops.coded_shard_matmul_batch(tiles, x).reshape(-1, C)
+            want = ref.coded_matvec_ref(flat, x, out_dtype=torch.float64)
+            err = max_err(got, want)
+            tol = 1e-12 * (1 + float(want.abs().max()))
+            row = dict(
+                ms=time_ms(lambda: ops.coded_shard_matmul_batch(tiles, x)),
+                queued_ms=time_queued_ms(
+                    lambda: ops.coded_shard_matmul_batch(tiles, x)),
+                plain_ms=time_ms(lambda: ref.coded_matvec_ref(
+                    flat, x, out_dtype=torch.float64)),
+                library_ms=time_ms(lambda: torch.matmul(flat, x)),
+                bound_ms=bound(4.0 * (nt * TILE * K + K * C)
+                               + 8.0 * nt * TILE * C,
+                               [2.0 * nt * TILE * K * C
+                                / F64_FLOP_PER_S])[0],
+                max_abs_err=err)
+            print(f"[c] coded_matvec trunk {stage} ({n} rows in {nt} tiles,"
+                  f" K {K}, C {C}): max_abs_err={err:.3e} (tol {tol:.3e})"
+                  f" kernel {row['ms']:.4f} ms, queued "
+                  f"{row['queued_ms']:.4f}, plain {row['plain_ms']:.4f}, "
+                  f"library {row['library_ms']:.4f}, bound "
+                  f"{row['bound_ms']:.4f} ms", flush=True)
+            if err > tol:
+                raise AssertionError(f"coded_matvec at the trunk stage "
+                                     f"{stage} disagrees ({err} > {tol})")
+            out[f"{stage} C={C}"] = row
+        del tiles, flat
+    return out
+
+
+def trunk_contract_rows(dev, gen, key) -> dict:
+    """The decode's known term (``parity_contract``) at trunk keys'
+    frozen solves, against its plain version."""
+    import torch
+    from repro_torch.core import mds
+    from repro_torch.kernels import ops, ref
+    out = {}
+    rng = np.random.default_rng(1)
+    for L, s in TRUNK_DECODES:
+        m = L - s
+        ctrs = mds.parity_counters(np.arange(s), 0)
+        cols = np.sort(rng.permutation(L)[:m])
+        kc = torch.from_numpy(ctrs.view(np.int32)).to(dev)
+        kj = torch.from_numpy(cols.astype(np.int32)).to(dev)
+        ctrs_t = torch.from_numpy(ctrs.astype(np.int64)).to(dev)
+        cols_t = torch.from_numpy(cols).to(dev)
+        scale = ops.parity_scale(L)
+        for C in TRUNK_COLS:
+            y = torch.randn((m, C), generator=gen, device=dev,
+                            dtype=torch.float64)
+            got = ops.parity_contract(key, L, kc, y, cols=kj)
+            want = ref.parity_contract_ref(key, scale, ctrs_t, cols_t, y)
+            err = max_err(got, want)
+            tol = 1e-12 * (1 + float(want.abs().max()))
+            ents = s * m
+            row = dict(
+                ms=time_ms(lambda: ops.parity_contract(key, L, kc, y,
+                                                       cols=kj)),
+                queued_ms=time_queued_ms(lambda: ops.parity_contract(
+                    key, L, kc, y, cols=kj)),
+                plain_ms=time_ms(lambda: ref.parity_contract_ref(
+                    key, scale, ctrs_t, cols_t, y), 3),
+                bound_ms=bound(4.0 * (s + m) + 8.0 * (m + s) * C,
+                               parity_op_times(ents)
+                               + [2.0 * ents * C / F64_FLOP_PER_S])[0],
+                max_abs_err=err)
+            print(f"[c] parity_contract trunk L {L}, {s} parity rows x {m} "
+                  f"known, C {C}: max_abs_err={err:.3e} (tol {tol:.3e}) "
+                  f"kernel {row['ms']:.4f} ms, queued "
+                  f"{row['queued_ms']:.4f}, plain {row['plain_ms']:.4f}, "
+                  f"bound {row['bound_ms']:.4f} ms", flush=True)
+            if err > tol:
+                raise AssertionError(f"parity_contract at a trunk decode "
+                                     f"disagrees ({err} > {tol})")
+            out[f"L={L} s={s} C={C}"] = row
+    return out
 
 
 def repeat_equal(label: str, first, fn, times: int = 16) -> None:
@@ -1321,6 +1430,361 @@ def phase_k(dev) -> None:
                 f"{rep.max_err:.3e}, argmax match {rep.argmax_match_rate})")
 
 
+#: phase l's serve: 4 requests x prompt 32 x gen 8 on 4 slots of one
+#: master, coding_scope="trunk" (16 x 7 + 1 = 113 coded matmuls a step)
+TRUNK_REQUESTS, TRUNK_PROMPT, TRUNK_GEN, TRUNK_SLOTS = 4, 32, 8, 4
+#: phase l's seed candidates, probed in order (``trunk_plan_probe``)
+TRUNK_SEED_CANDIDATES = range(10)
+#: phase l's faulted serve: the published widths at 2 of the 16 layers
+TRUNK_FAULT_LAYERS = 2
+
+
+class _ProbeTrunk:
+    """``HostTrunk``'s interface without weights, for
+    :func:`trunk_plan_probe`: each layer's stages go through the bridge's
+    grouped hook on zero activations one column wide; a weight is a
+    broadcast (L, 1) zero array, so only the heights exist."""
+
+    def __init__(self, cfg, params, head_W):
+        from repro_torch.serve_coded import trunk_matmul_keys
+        rows = {"wq": cfg.n_heads * cfg.d_head,
+                "wk": cfg.n_kv_heads * cfg.d_head,
+                "wv": cfg.n_kv_heads * cfg.d_head, "wo": cfg.d_model,
+                "w_in": cfg.d_ff, "w_gate": cfg.d_ff, "w_out": cfg.d_model}
+        self.keys = trunk_matmul_keys(cfg, "trunk")
+        self.weights = {k: np.broadcast_to(0.0, (rows[k.split(".")[1]], 1))
+                        for k in self.keys}
+        self.n_layers = len(self.keys) // 7
+
+    def zero_caches(self, batch, max_len):
+        return {}
+
+    def forward(self, tokens, positions, rows, caches, mm=None,
+                collect=None, mm_group=None):
+        R, T = np.shape(tokens)
+        X = np.zeros((R * T, 1))
+        for i in range(self.n_layers):
+            for stage in (("wq", "wk", "wv"), ("wo",), ("w_in", "w_gate"),
+                          ("w_out",)):
+                mm_group([(f"blk{i}.{k}", X) for k in stage])
+        return np.zeros((R, T, 1))
+
+
+def trunk_plan_probe(cfg, seed: int) -> dict:
+    """The frozen prefix plans of phase l's trunk-scope serve at ``seed``,
+    from the bridge's timing alone: the serve runs with a weightless trunk
+    (:class:`_ProbeTrunk`) and stage executions that return zeros, so no
+    product and no decode is computed.  A plan depends on the heights,
+    the pool, the arrivals and the delays, not on the weights.  Returns
+    ``{key: [parity rows of each frozen plan]}``."""
+    from repro_torch.launch import serve
+    from repro_torch.models import padded_vocab
+    from repro_torch.serve_coded import CodedServingBridge, synthetic_requests
+    from repro_torch.serve_coded import bridge as br
+    from repro_torch.stream import AdmissionConfig
+    saved = (serve.build_model, serve.head_matrix, br.HostTrunk,
+             br._BarrierExecutor.execute, br.CodedLinear.parity_ctrs)
+    serve.build_model = lambda *a, **kw: (cfg, None)
+    serve.head_matrix = lambda c, p: np.broadcast_to(
+        0.0, (padded_vocab(cfg), 1))
+    br.HostTrunk = _ProbeTrunk
+    br._BarrierExecutor.execute = lambda self, items, **kw: {
+        k: np.zeros((X.shape[0], self.linears[k].L)) for k, X in items}
+    # a row's counter walks its block's conditioning guard (a parity
+    # derivation); which rows a prefix takes does not depend on it
+    br.CodedLinear.parity_ctrs = lambda self, ids: np.zeros(len(ids),
+                                                            np.uint32)
+    try:
+        bridge = CodedServingBridge(
+            masters=1, arch=ARCH, smoke=False, seed=seed,
+            slots_per_master=TRUNK_SLOTS, coding_scope="trunk",
+            backend="numpy", parity_storage="virtual", verify=False,
+            admission=AdmissionConfig(policy="edf"), device="cpu")
+        bridge._setup_model(TRUNK_PROMPT + TRUNK_GEN + 8)
+        bridge.serve(synthetic_requests(
+            TRUNK_REQUESTS, masters=1, vocab=cfg.vocab,
+            prompt_len=TRUNK_PROMPT, gen_len=TRUNK_GEN, rate=0.004,
+            seed=seed))
+    finally:
+        (serve.build_model, serve.head_matrix, br.HostTrunk,
+         br._BarrierExecutor.execute, br.CodedLinear.parity_ctrs) = saved
+    return frozen_parity_rows(bridge)
+
+
+def frozen_parity_rows(bridge) -> dict:
+    """``{key: [parity rows of each frozen plan]}`` of a served bridge."""
+    out = {}
+    for e in bridge._plan_cache._entries.values():
+        if not e.plans:
+            continue
+        for key, plan in e.plans.items():
+            L = bridge._linears[key].L
+            out.setdefault(key, []).append(int((plan.rows >= L).sum()))
+    return out
+
+
+def host_rss_gib() -> tuple:
+    """(current, peak) resident host memory of this process, GiB."""
+    import resource
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    cur = 0.0
+    with open("/proc/self/status") as f:
+        for ln in f:
+            if ln.startswith("VmRSS:"):
+                cur = int(ln.split()[1]) / 2**20
+    return cur, peak
+
+
+def _trunk_bridge(dev, seed: int, *, tracer=None, faults=None):
+    from repro_torch.serve_coded import CodedServingBridge
+    from repro_torch.stream import AdmissionConfig
+    bridge = CodedServingBridge(
+        masters=1, arch=ARCH, smoke=False, seed=seed,
+        slots_per_master=TRUNK_SLOTS, coding_scope="trunk", backend="torch",
+        parity_storage="virtual", device_products=True, verify=True,
+        admission=AdmissionConfig(policy="edf"), tracer=tracer,
+        faults=faults, device=dev)
+    bridge._setup_model(TRUNK_PROMPT + TRUNK_GEN + 8)
+    return bridge
+
+
+def _trunk_requests(bridge, seed: int):
+    from repro_torch.serve_coded import synthetic_requests
+    return synthetic_requests(TRUNK_REQUESTS, masters=1,
+                              vocab=bridge._model["cfg"].vocab,
+                              prompt_len=TRUNK_PROMPT, gen_len=TRUNK_GEN,
+                              rate=0.004, seed=seed)
+
+
+def _answered(rep, tag: str) -> None:
+    answered = {rid: len(t) for rid, t in rep.tokens.items()}
+    if len(answered) != TRUNK_REQUESTS or \
+            any(n != TRUNK_GEN for n in answered.values()):
+        raise AssertionError(f"{tag}: not every request was answered: "
+                             f"{answered}")
+
+
+def _pick_trunk_seed(cfg, head_solve: bool = True) -> int:
+    """The first candidate seed whose frozen prefixes need a parity solve
+    in some trunk key and — with ``head_solve`` — in the head, or else
+    none in the head (``trunk_plan_probe``)."""
+    sizes = {}
+    for seed in TRUNK_SEED_CANDIDATES:
+        fr = trunk_plan_probe(cfg, seed)
+        head = fr.pop("head")
+        trunk = sum(any(x > 0 for x in v) for v in fr.values())
+        sizes[seed] = (head, trunk)
+        if (max(head) > 0) == head_solve and trunk > 0:
+            print(f"[l] probe, {cfg.n_repeats} layers: seed -> (head parity "
+                  f"rows of each frozen plan, trunk keys with a solve of "
+                  f"{len(fr)}): {sizes}; chosen seed {seed}", flush=True)
+            return seed
+    raise AssertionError(f"no candidate seed fits: {sizes}")
+
+
+def phase_l(dev) -> None:
+    """Trunk-scope coded serving of llama3.2-1b at its published widths,
+    gated on exactness against the uncoded twin; then a faulted serve at
+    2 layers."""
+    import dataclasses
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.faults import FaultConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import init_model
+    from repro_torch.obs import Tracer
+    from repro_torch.serve_coded import packing
+    fresh_card(dev, "l")
+    cfg = get_config(ARCH)
+    seed = _pick_trunk_seed(cfg)
+    before = kernels.launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tracer = Tracer(meta={"entry": "chip_smoke", "phase": "l"})
+    bridge = _trunk_bridge(dev, seed, tracer=tracer)
+    n_keys = len(bridge._coded_keys)
+    print(f"[l] seed {seed}: {n_keys} coded matmuls a step (head L="
+          f"{bridge.head.L}); setup {time.perf_counter() - t0:.1f} s, host "
+          f"RSS (now, peak) GiB {tuple(round(v, 2) for v in host_rss_gib())}",
+          flush=True)
+    # decodes per key, by kind: every packed problem's decode is either a
+    # parity solve or a systematic scatter
+    decodes = {}
+    execute = packing.PackedStage.execute
+
+    def counted(self, X, **kw):
+        for p in self.problems:
+            decodes.setdefault(p.key, [0, 0])[0 if p.used_solve else 1] += 1
+        return execute(self, X, **kw)
+    packing.PackedStage.execute = counted
+    try:
+        rep = bridge.serve(_trunk_requests(bridge, seed))
+    finally:
+        packing.PackedStage.execute = execute
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    grew = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+    frozen = frozen_parity_rows(bridge)
+    solved = sorted(k for k, (n, _) in decodes.items() if n)
+    print(f"[l] frozen-plan parity rows: head {frozen['head']}, trunk keys "
+          f"with a solve {sum(1 for k in solved if k != 'head')} of "
+          f"{n_keys - 1}, largest trunk solve "
+          f"{max(max(v) for k, v in frozen.items() if k != 'head')}",
+          flush=True)
+    layers = {}
+    for k, (a, b) in decodes.items():
+        blk, _, name = k.rpartition(".")
+        layers.setdefault(blk or k, []).append(f"{name} {a}/{b}")
+    for blk, line in layers.items():
+        print(f"[l] decodes (solve/systematic) {blk}: {', '.join(line)}",
+              flush=True)
+    stages = {k: round(v, 3) for k, v in rep.per_stage_wall.items()}
+    print(f"[l] wall {rep.wall_seconds:.2f} s, {rep.tokens_generated} tokens "
+          f"({rep.tokens_generated / rep.wall_seconds:.3f} tok/s), "
+          f"{len(rep.steps)} steps, solve steps {rep.solve_steps}; "
+          f"per-stage wall s {stages}", flush=True)
+    print(f"[l] max_err {rep.max_err:.3e} (the bridge's gate outside the "
+          f"head: 2e-2), argmax match {rep.argmax_match_rate:.4f}, "
+          f"decode_ok {rep.decode_ok}; peak device memory "
+          f"{peak / 2**30:.2f} GiB, host RSS (now, peak) GiB "
+          f"{tuple(round(v, 2) for v in host_rss_gib())}; launches {grew}",
+          flush=True)
+    _answered(rep, "phase l")
+    if not rep.decode_ok or rep.argmax_match_rate != 1.0:
+        raise AssertionError(f"phase l: decode_ok {rep.decode_ok}, argmax "
+                             f"match {rep.argmax_match_rate}")
+    if "head" not in solved or len(solved) < 2:
+        raise AssertionError(f"phase l: seed {seed} decoded no parity solve "
+                             f"in the head and the trunk: {solved}")
+    for k in ("coded_matvec", "parity_contract", "gen_parity_matvec"):
+        if grew[k] <= 0:
+            raise AssertionError(f"phase l never launched {k}")
+    # the identically scheduled uncoded twin: the same bridge, coding off
+    bridge.coded, bridge.tracer = False, None
+    t0 = time.perf_counter()
+    plain = bridge.serve(_trunk_requests(bridge, seed))
+    print(f"[l] uncoded twin: wall {time.perf_counter() - t0:.2f} s, tokens "
+          f"equal {plain.tokens == rep.tokens}", flush=True)
+    if plain.tokens != rep.tokens:
+        raise AssertionError("phase l: coded tokens differ from the uncoded "
+                             "twin's")
+    del bridge, rep, plain
+    fresh_card(dev, "l")
+
+    # -- faulted: the published widths at 2 layers, seeded into the memo.
+    # Quarantines re-plan the serve, and a head plan can then need more
+    # parity rows than the card holds as a float64 minor (~95k; seed 0's
+    # faulted serve re-planned to ~110k): the seed is the first whose
+    # frozen head prefix is systematic
+    cut = dataclasses.replace(cfg, n_repeats=TRUNK_FAULT_LAYERS)
+    seed = _pick_trunk_seed(cut, head_solve=False)
+    serve._MODEL_CACHE[(ARCH, False, seed, str(dev))] = (
+        cut, init_model(seed, cut, dev))
+    fc = FaultConfig(seed=5, corrupt_rate=0.3, corrupt_kind="sign_flip",
+                     retry_budget=4)
+    print(f"[l] faulted serve: {TRUNK_FAULT_LAYERS} of {cfg.n_repeats} "
+          f"layers, seed {seed}, {fc}", flush=True)
+    bridge = _trunk_bridge(dev, seed)
+    t0 = time.perf_counter()
+    clean = bridge.serve(_trunk_requests(bridge, seed))
+    t_clean = time.perf_counter() - t0
+    bridge.faults = fc
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = kernels.launch_counts()
+    t0 = time.perf_counter()
+    rep = bridge.serve(_trunk_requests(bridge, seed))
+    t_fault = time.perf_counter() - t0
+    grew = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+    f = rep.faults
+    same = rep.tokens == clean.tokens
+    degraded = (rep.decode_modes or {}).get("degraded", 0)
+    print(f"[l] faulted: wall {t_fault:.2f} s (clean twin {t_clean:.2f} s), "
+          f"tokens equal clean {same}, decode modes {rep.decode_modes}, "
+          f"max_err {rep.max_err:.3e}, peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+          + ", ".join(f"{k} {f[k]}" for k in (
+              "injected", "corrupt_steps", "corrupt_applied", "detected",
+              "localized", "retries", "rows_rejected", "false_flags",
+              "detection_rate", "localization_rate", "quarantines",
+              "readmissions")) + f"; launches {grew}", flush=True)
+    _answered(rep, "phase l faulted")
+    if not (same or degraded > 0) or f["false_flags"] != 0 \
+            or f["detection_rate"] < 0.99 or f["localization_rate"] < 0.99:
+        raise AssertionError(f"phase l faulted serve: tokens equal {same}, "
+                             f"degraded {degraded}, faults {f}")
+    if f["corrupt_applied"] <= 0:
+        raise AssertionError("phase l faulted serve: no corruption reached "
+                             "a decode")
+    del bridge
+    fresh_card(dev, "l")
+
+
+def _paper_plans(sc) -> dict:
+    """Fig. 4's plans on the large scenario, as
+    ``benchmarks/fig4_delay.py`` builds them."""
+    from repro_torch.core import (fractional_greedy, iterated_greedy,
+                                  plan_from_assignment, uncoded_uniform)
+    k_it = iterated_greedy(sc, rng=0)
+    return {"uncoded": uncoded_uniform(sc),
+            "dedi-iter": plan_from_assignment(sc, k_it, method="dedi-iter"),
+            "frac": fractional_greedy(sc, init=k_it)}
+
+
+def ks_distance(a, b) -> float:
+    """Two-sample Kolmogorov-Smirnov distance of two samples."""
+    a, b = np.sort(a), np.sort(b)
+    grid = np.concatenate([a, b])
+    return float(np.abs(np.searchsorted(a, grid, side="right") / a.size
+                        - np.searchsorted(b, grid, side="right") / b.size
+                        ).max())
+
+
+def phase_m(dev) -> None:
+    """The paper's Monte Carlo (Fig. 4's plans, the large scenario) on
+    the card against the numpy stream."""
+    import torch
+    from repro_torch.core import large_scale_scenario
+    from repro_torch.sim import simulate_plan
+    sc = large_scale_scenario(0)
+    plans = _paper_plans(sc)
+    runs = [(name, plan, 0.0) for name, plan in plans.items()] \
+        + [("frac", plans["frac"], 0.1)]
+    sem = lambda x: float(np.std(x) / np.sqrt(x.size))  # noqa: E731
+    for name, plan, sp in runs:
+        kw = dict(keep_samples=True, straggle_p=sp)
+        t0 = time.perf_counter()
+        ref = simulate_plan(sc, plan, trials=MC_NUMPY_TRIALS, rng=1, **kw)
+        t_np = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = simulate_plan(sc, plan, trials=MC_TORCH_TRIALS, rng=2,
+                            backend="torch", device=dev, **kw)
+        t_dev = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        again = simulate_plan(sc, plan, trials=MC_TORCH_TRIALS, rng=2,
+                              backend="torch", device=dev, **kw)
+        se = float(np.hypot(sem(res.overall_samples),
+                            sem(ref.overall_samples)))
+        gap = abs(res.overall_mean - ref.overall_mean)
+        ks = ks_distance(res.overall_samples, ref.overall_samples)
+        same = np.array_equal(again.per_master_samples,
+                              res.per_master_samples)
+        print(f"[m] {name} (straggle_p {sp}, active nodes a master "
+              f"{(plan.l > 0).sum(axis=1).tolist()}): mean torch "
+              f"{res.overall_mean:.3f} ms / numpy {ref.overall_mean:.3f} "
+              f"(gap {gap / se:.2f} combined SE), KS {ks:.4f}; "
+              f"{MC_TORCH_TRIALS / t_dev:.4g} trials/s on the card "
+              f"({t_dev:.3f} s), numpy {MC_NUMPY_TRIALS / t_np:.4g} "
+              f"trials/s ({t_np:.3f} s); peak device memory "
+              f"{peak / 2**20:.1f} MiB; same seed bit-equal {same}",
+              flush=True)
+        if gap > 4 * se or ks >= 0.01 or not same:
+            raise AssertionError(f"phase m {name}: gap {gap / se:.2f} SE, "
+                                 f"KS {ks:.4f}, repeatable {same}")
+
+
 def phase_f(dev) -> None:
     """Coded serving at smoke size through serve_policy_sweep."""
     from repro_torch import kernels
@@ -1520,6 +1984,8 @@ def main() -> int:
     phase_h(dev)
     phase_j(dev)
     phase_k(dev)
+    phase_l(dev)
+    phase_m(dev)
     launches = kernels.launch_counts()
     for name, n in launches.items():
         if n <= 0:
@@ -1530,7 +1996,7 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "queued_ms", "library_queued_ms", "graph_ms",
             "library_parity_ms", "two_pass_ms", "batched", "float32",
-            "verify", "decode_chunk", "launch_floor",
+            "verify", "decode_chunk", "trunk", "launch_floor",
             "serving_prefill_bfloat16", "serving_prefill_float32",
             "decode_bfloat16", "decode_float32", "long_prefill_float32")
     print(json.dumps({"kernels": [{k: rows[n][k] for k in keys

@@ -9,8 +9,9 @@ shared decode step, reporting throughput.  ``--arch rwkv6-7b`` serves the
 RWKV-6 stack (its WKV through the hand-written kernel).  With ``--coded``
 the same model is served through the coded-computation bridge
 (:mod:`repro_torch.serve_coded`): the output-head matmul of every token
-batch is MDS-encoded and executed as per-worker shards scheduled by the
-stream planner (head scope; the ffn/trunk scopes come in a later slice):
+batch (``--coding-scope ffn|trunk``: also the FFN / every trunk
+projection) is MDS-encoded and executed as per-worker shards scheduled by
+the stream planner, the shard products on ``--device``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --coded --policy edf \
         --requests 12 --gen-len 8
@@ -117,8 +118,9 @@ def main(argv=None) -> int:
                     help="admission policy for --coded serving")
     ap.add_argument("--coding-scope", default="head",
                     choices=("head", "ffn", "trunk"),
-                    help="which matmuls run coded; the port serves the "
-                         "output head only so far (--coded serving)")
+                    help="which matmuls run coded: the output head, plus "
+                         "the FFN projections (ffn), or every trunk "
+                         "projection too (trunk) (--coded serving)")
     ap.add_argument("--steps-per-dispatch", type=int, default=1,
                     help="decode tokens generated per coded admission "
                          "(--coded serving)")

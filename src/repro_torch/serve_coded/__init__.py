@@ -8,9 +8,11 @@ machinery (``repro_torch.stream``): the OnlinePlanner's (k, b, l) allocation pic
 worker shards, the SharePool enforces the paper's column-sum ≤ 1 ledger
 across tenants' concurrent steps, and a pluggable admission policy
 ("fifo" | "edf" | "fair") arbitrates which waiting requests join a batch.
-The port serves ``coding_scope="head"`` — the output head — in this
-slice; decoded outputs are exact: greedy tokens are bit-identical to the
-uncoded pipeline.
+``coding_scope`` picks how deep the coding reaches — the output head
+("head"), plus the FFN up/down projections ("ffn"), or the whole trunk
+including attention q/k/v/o ("trunk", replayed on the host by
+:class:`HostTrunk`) — and decoded outputs are exact: greedy tokens are
+bit-identical to the uncoded pipeline at every scope.
 """
 from .bridge import (CODING_SCOPES, EXECUTION_MODES, CodedServingBridge,
                      ServeReport, default_pool)
@@ -19,6 +21,7 @@ from .coded_linear import (CodedLinear, CodedLMHead, HeadStep, LinearStep,
 from .packing import PackedShards, PackedStage, ShardProblem
 from .plan_cache import StepPlan, StepPlanCache
 from .requests import ServeRequest, synthetic_requests
+from .trunk import HostTrunk, trunk_matmul_keys
 
 __all__ = [
     "CodedServingBridge", "ServeReport", "default_pool", "CODING_SCOPES",
@@ -27,6 +30,7 @@ __all__ = [
     "prefix_plan_batch", "shard_products",
     "PackedShards", "PackedStage", "ShardProblem",
     "StepPlan", "StepPlanCache",
+    "HostTrunk", "trunk_matmul_keys",
     "ServeRequest", "synthetic_requests",
     "serve_policy_sweep", "print_policy_table", "run_coded_smoke",
     "write_trace_summary",
@@ -104,7 +108,9 @@ def run_coded_smoke(*, arch: str = "llama3.2-1b", smoke: bool = True,
 
     Returns 0 on success (CLI-friendly); asserts that every decoded coded
     matmul matched the uncoded product.  The model and the ``"torch"``
-    backend run on ``device`` (default ``cuda``).  ``trace`` writes
+    backend run on ``device`` (default ``cuda``); on ``"torch"`` the shard
+    products run there too (``device_products``), through the port's
+    kernels on the card.  ``trace`` writes
     a Chrome/Perfetto trace of the whole sweep (every policy's serve, as
     sibling "serve" spans) to that path.  ``faults`` (a fault spec string
     or :class:`repro_torch.faults.FaultConfig`) arms the chaos layer —
@@ -130,6 +136,7 @@ def run_coded_smoke(*, arch: str = "llama3.2-1b", smoke: bool = True,
                             rng=seed),
         slots_per_master=slots_per_master, coding_scope=coding_scope,
         steps_per_dispatch=steps_per_dispatch, execution=execution,
+        device_products=backend == "torch",
         faults=faults, ls_tail=ls_tail, tracer=tracer, device=device)
     bridge._setup_model(prompt_len + gen_len + 8)
     reqs = synthetic_requests(

@@ -5,9 +5,12 @@ admission/batching policy of the real inference server — the port of
 The scheduling, planning, fault layer and reporting are the reference's;
 the model runs as torch on ``device`` (default ``cuda``) and the coded
 numerics run on ``backend="numpy"`` (float64 host, the exact reference) or
-``"torch"`` (the port's kernels + float64 ``torch.linalg`` decode).  This
-slice serves ``coding_scope="head"``; the ffn/trunk scopes (``HostTrunk``)
-come with the next slice and raise ``NotImplementedError`` here.
+``"torch"`` (the port's kernels + float64 ``torch.linalg`` decode).  Every
+coding scope is served: ``"head"`` runs the torch model's trunk on
+``device``; ``"ffn"`` and ``"trunk"`` replay the trunk in float64 on the
+host (:class:`~repro_torch.serve_coded.trunk.HostTrunk`) with its matmuls
+routed through the coded layers — on the card with ``backend="torch"``
+and ``device_products``.
 
 ``launch/serve.py`` runs prefill → continuous-batched decode;
 ``repro_torch.stream`` plans coded matrix products over shared heterogeneous
@@ -91,9 +94,11 @@ from ..stream.replan import OnlinePlanner, ReplanPolicy, scaled_row_loads
 from .coded_linear import CodedLMHead
 from .coded_linear import (DECODE_ENGINE, CodedLinear, prefix_plan_batch,
                            shard_products, surplus_plan)
-from .packing import PackedStage, ShardProblem
+from .packing import (DeviceRowsDecode, PackedShards, PackedStage,
+                      ShardProblem, device_verify_residuals)
 from .plan_cache import StepPlan, StepPlanCache
 from .requests import ServeRequest
+from .trunk import HostTrunk, trunk_matmul_keys
 
 __all__ = ["CodedServingBridge", "ServeReport", "default_pool",
            "CODING_SCOPES", "EXECUTION_MODES"]
@@ -499,11 +504,6 @@ class CodedServingBridge:
         if coding_scope not in CODING_SCOPES:
             raise ValueError(f"unknown coding_scope {coding_scope!r}; "
                              f"expected one of {CODING_SCOPES}")
-        if coding_scope != "head":
-            raise NotImplementedError(
-                f"coding_scope={coding_scope!r} needs the host trunk "
-                "(HostTrunk), which the port brings in its ffn/trunk-scope "
-                "slice; this slice serves coding_scope='head'")
         if execution not in EXECUTION_MODES:
             raise ValueError(f"unknown execution {execution!r}; "
                              f"expected one of {EXECUTION_MODES}")
@@ -569,17 +569,32 @@ class CodedServingBridge:
                                     parity_storage=self.parity_storage,
                                     device=self.device)
             self._linears: Dict[str, CodedLinear] = {"head": self.head}
-            prefill_fn, decode_fn = serving_fns(cfg, return_hidden=True)
-            self._model.update(prefill_fn=prefill_fn, decode_fn=decode_fn)
-            self._coded_keys = ["head"]
+            self.runner: Optional[HostTrunk] = None
+            if self.coding_scope == "head":
+                prefill_fn, decode_fn = serving_fns(cfg, return_hidden=True)
+                self._model.update(prefill_fn=prefill_fn, decode_fn=decode_fn)
+            else:
+                self.runner = HostTrunk(cfg, params, W)
+                for key in trunk_matmul_keys(cfg, self.coding_scope):
+                    self._linears[key] = CodedLinear(
+                        self.runner.weights[key], name=key, seed=self.seed,
+                        backend=self.backend,
+                        parity_storage=self.parity_storage,
+                        device=self.device)
+            self._coded_keys = [k for k in self._linears if k != "head"] \
+                + ["head"]
         if max_len > self._max_len:
             # caches must cover the longest request this bridge ever saw —
             # a later serve() with longer requests regrows them
             ml = int(max_len)
             cfg = self._model["cfg"]
-            from ..launch.serve import zero_caches
-            self._model["zero_caches"] = \
-                lambda b: zero_caches(cfg, b, ml, device=self.device)
+            if self.coding_scope == "head":
+                from ..launch.serve import zero_caches
+                self._model["zero_caches"] = \
+                    lambda b: zero_caches(cfg, b, ml, device=self.device)
+            else:
+                self._model["zero_caches"] = \
+                    lambda b: self.runner.zero_caches(b, ml)
             self._max_len = ml
 
     @staticmethod
@@ -722,6 +737,25 @@ class CodedServingBridge:
                                          lin.parity_rows)
             return lin.generator(max(total, lin.L))
 
+        def _on_card(lin) -> bool:
+            # virtual parity on the torch backend: the recovery decodes
+            # and the per-row checks run on the card from counters, never
+            # forming a layer's dense parity rows on the host
+            return lin.backend == "torch" and lin.parity_storage == "virtual"
+
+        def _decode(lin, G, rows: np.ndarray):
+            """Exactly-L recovery decode plan of ``rows`` (L,)."""
+            if _on_card(lin):
+                return DeviceRowsDecode(lin, rows)
+            return bk.plan_decode(G, rows[None])
+
+        def _residuals(lin, G, rows: np.ndarray, x_hat, y) -> np.ndarray:
+            """Relative residuals (S,) of delivered ``rows`` against x̂."""
+            if _on_card(lin):
+                return device_verify_residuals(lin, rows, x_hat, y)
+            return bk.plan_verify(G, rows[None]).residuals(x_hat[None],
+                                                           y[None])[0]
+
         # ---- helpers bound to this serve run -----------------------------
 
         def online() -> np.ndarray:
@@ -817,6 +851,34 @@ class CodedServingBridge:
                 slot.pos = len(slot.prompt)
                 slot.needs_prefill = False
                 H[s] = to_host(h1)[0, 0]
+            return np.stack([H[s] for s in slot_ids])
+
+        def hidden_states_host(st: _MasterState, slot_ids: List[int],
+                               mm, mm_group=None) -> np.ndarray:
+            cont = [s for s in slot_ids if not st.slots[s].needs_prefill]
+            H: Dict[int, np.ndarray] = {}
+            if cont:
+                toks = np.array([[st.slots[s].tokens[-1]] for s in cont],
+                                dtype=np.int64)
+                pos = np.array([[st.slots[s].pos] for s in cont],
+                               dtype=np.int64)
+                hid = self.runner.forward(toks, pos, np.array(cont),
+                                          st.caches, mm, mm_group=mm_group)
+                for i, s in enumerate(cont):
+                    H[s] = hid[i, 0]
+                    st.slots[s].pos += 1
+            for s in slot_ids:
+                slot = st.slots[s]
+                if not slot.needs_prefill:
+                    continue
+                P = len(slot.prompt)
+                hid = self.runner.forward(
+                    np.asarray(slot.prompt)[None].astype(np.int64),
+                    np.arange(P, dtype=np.int64)[None], np.array([s]),
+                    st.caches, mm, mm_group=mm_group)
+                slot.pos = P
+                slot.needs_prefill = False
+                H[s] = hid[0, -1]
             return np.stack([H[s] for s in slot_ids])
 
         # ---- step timing + dispatch --------------------------------------
@@ -998,6 +1060,20 @@ class CodedServingBridge:
             def serial_mutate(y, plan):
                 corrupt_rows(y, plan.row_workers())
 
+            def products(lin, rows: np.ndarray, X: np.ndarray) -> np.ndarray:
+                """The fault layer's shard products of coded rows ``rows``
+                (surplus, prefix, re-dispatched), (rows, B) float64: with
+                the batched engine's device products, through the same
+                packed kernels on the card as the step's own products."""
+                if ex is None or not ex.device_products \
+                        or self.backend != "torch" or not rows.size:
+                    return shard_products(lin.gather_encoded(rows), X)
+                pack = PackedShards([ShardProblem(key=lin.name, linear=lin,
+                                                  rows=rows,
+                                                  used_solve=False)])
+                y = pack.products_device(X, out_dtype=self.product_dtype)[0]
+                return y.to(torch.float64).cpu().numpy()
+
             def plan_for(key: str):
                 if ex is not None:
                     return ex.plans[key]
@@ -1046,12 +1122,11 @@ class CodedServingBridge:
                     sp.corrupt_hit = True
                 flagged = y_sur = G = None
                 if fdetect and sur.size:
-                    y_sur = shard_products(lin.gather_encoded(sur), X)
+                    y_sur = products(lin, sur, X)
                     if marks:
                         corrupt_rows(y_sur, swk)
                     G = _gen(lin, g_rows)
-                    resid = bk.plan_verify(G, sur[None]).residuals(
-                        out.T[None], y_sur[None])[0]
+                    resid = _residuals(lin, G, sur, out.T, y_sur)
                     flagged = resid > dtol
                 if flagged is None or not flagged.any():
                     if self.ls_tail:
@@ -1069,7 +1144,7 @@ class CodedServingBridge:
                     fstats["false_flags"] += 1
                 rows_all = np.concatenate([plan.rows, sur])
                 wk_all = np.concatenate([pw, swk])
-                y_pref = shard_products(lin.gather_encoded(plan.rows), X)
+                y_pref = products(lin, plan.rows, X)
                 if marks:
                     corrupt_rows(y_pref, pw)
                 y_all = np.concatenate([y_pref, y_sur])
@@ -1092,18 +1167,17 @@ class CodedServingBridge:
                     worker 0, the master's own column, never marked) and
                     re-decode; the remaining deliveries re-check it."""
                     rows_rd = rows_all[excl]
-                    y_rd = shard_products(lin.gather_encoded(rows_rd), X)
+                    y_rd = products(lin, rows_rd, X)
                     rows_c = np.concatenate([rows_all[~excl], rows_rd])
                     y_c = np.concatenate([y_all[~excl], y_rd])
                     wk_c = np.concatenate(
                         [wk_all[~excl], np.zeros(rows_rd.size, np.int64)])
                     sp.rows_dispatched += int(rows_rd.size)
-                    x_hat = bk.plan_decode(G, rows_c[:lin.L][None]).apply(
+                    x_hat = _decode(lin, G, rows_c[:lin.L]).apply(
                         y_c[:lin.L][None], backend=self.backend,
                         device=lin.device)[0]
-                    resid = bk.plan_verify(
-                        G, rows_c[lin.L:][None]).residuals(
-                            x_hat[None], y_c[lin.L:][None])[0]
+                    resid = _residuals(lin, G, rows_c[lin.L:], x_hat,
+                                       y_c[lin.L:])
                     return (not (resid > dtol).any()), rows_c, wk_c, x_hat
 
                 budget = max(faults.retry_budget, 0)
@@ -1152,8 +1226,7 @@ class CodedServingBridge:
                     # a *verified* estimate in hand, corruption attributes
                     # per delivered row: every worker owning a row whose
                     # residual against x̂ flags is a confirmed culprit
-                    row_res = bk.plan_verify(G, rows_all[None]).residuals(
-                        x_hat[None], y_all[None])[0]
+                    row_res = _residuals(lin, G, rows_all, x_hat, y_all)
                     bad_rows = row_res > dtol
                     fstats["localized"] += 1
                     nrej = int(bad_rows.sum())
@@ -1164,8 +1237,7 @@ class CodedServingBridge:
                         if w not in sp.culprits:
                             sp.culprits.append(w)
                     sel_r, sel_w = rows_c[:lin.L], wk_c[:lin.L]
-                    dp = bk.plan_decode(G, sel_r[None])
-                    return ("exact", sel_r, sel_w, dp)
+                    return ("exact", sel_r, sel_w, _decode(lin, G, sel_r))
                 # no consistent exclusion within budget: reject every row
                 # a flagged worker delivered and LS-decode the remainder —
                 # explicitly degraded (decode_mode), never silently wrong.
@@ -1196,7 +1268,7 @@ class CodedServingBridge:
                 mode, sel_r, sel_w, dp = fix
                 if mode == "pass":
                     return out
-                y = shard_products(lin.gather_encoded(sel_r), X)
+                y = products(lin, sel_r, X)
                 if marks:
                     corrupt_rows(y, sel_w)
                 if mode == "exact":
@@ -1221,6 +1293,8 @@ class CodedServingBridge:
 
             def mm(key: str, X: np.ndarray) -> np.ndarray:
                 """Serial engine: one shard-by-shard coded task per call."""
+                if key not in task_map:             # out-of-scope: local
+                    return self.runner.local_matmul(key, X)
                 lin = self._linears[key]
                 task = task_map[key]
                 if self.coded:
@@ -1245,7 +1319,10 @@ class CodedServingBridge:
             def mm_group(items) -> Dict[str, np.ndarray]:
                 """Batched engine: one dependency stage per call."""
                 outs: Dict[str, np.ndarray] = {}
-                coded_items = list(items)
+                coded_items = [(k, X) for k, X in items if k in task_map]
+                for k, X in items:
+                    if k not in task_map:           # out-of-scope: local
+                        outs[k] = self.runner.local_matmul(k, X)
                 if coded_items:
                     if self.coded:
                         outs.update(ex.execute(coded_items,
@@ -1271,7 +1348,13 @@ class CodedServingBridge:
                             < st.slots[s].gen_len]
                 if not slot_ids:
                     break
-                H = hidden_states(st, slot_ids)
+                if self.coding_scope == "head":
+                    H = hidden_states(st, slot_ids)
+                elif batched:
+                    H = hidden_states_host(st, slot_ids, None,
+                                           mm_group=mm_group)
+                else:
+                    H = hidden_states_host(st, slot_ids, mm)
                 if batched:
                     logits = mm_group([("head", H)])["head"]
                 else:

@@ -64,7 +64,8 @@ from ..stream import backend as bk
 from .coded_linear import CodedLinear, shard_products
 
 __all__ = ["ShardProblem", "PackedShards", "PackedStage",
-           "pack_shard_problems"]
+           "pack_shard_problems", "DeviceRowsDecode",
+           "device_verify_residuals"]
 
 #: parity entries derived per chunk of the minor build (≈1 GB float32
 #: before its float64 copy into the minor) and of the known term on the
@@ -364,6 +365,58 @@ class _DeviceMember:
             self.checked = True
         z0[self.sys_rows] = sys_y                            # exact pins
         z0[self.unk] = sol
+
+
+class DeviceRowsDecode:
+    """An exactly-L decode of one coded layer from the rows ``rows``, on
+    the card — the fault layer's recovery decode for virtual parity on the
+    torch backend, in place of :func:`repro_torch.stream.backend
+    .plan_decode` over a lazy generator, which gathers the parity rows'
+    dense (s, L) float64 block on the host (tens of GB at an output head's
+    L).  The same substitution solve the batched engine runs
+    (:class:`_DeviceMember`: the minor from the counter-rows kernel, the
+    known term from the contraction kernel, a float64 LU); a prefix of
+    systematic rows alone is a scatter.  ``apply`` takes and returns the
+    host (1, L[, C]) layout of :meth:`DecodePlan.apply`."""
+
+    def __init__(self, lin: CodedLinear, rows: np.ndarray):
+        self.rows = np.asarray(rows)
+        self.lin = lin
+        self.member = _DeviceMember(lin, self.rows) \
+            if (self.rows >= lin.L).any() else None
+
+    def apply(self, y: np.ndarray, **_kw) -> np.ndarray:
+        y = np.asarray(y, dtype=np.float64)
+        dev = self.lin.device
+        y0 = bk.as_f64(y[0].reshape(self.lin.L, -1), dev)
+        z0 = torch.empty_like(y0)
+        if self.member is None:
+            z0[bk._idx_t(self.rows, dev)] = y0
+        else:
+            self.member.solve(y0, z0)
+        return z0.cpu().numpy().reshape(y.shape)
+
+
+def device_verify_residuals(lin: CodedLinear, rows: np.ndarray,
+                            x_hat: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """:meth:`repro_torch.stream.backend.VerifyPlan.residuals` of the
+    delivered ``rows`` (S,) of one virtual-parity layer, with the parity
+    rows' predictions R[par] @ x̂ from the contraction kernel on the card
+    (R never formed; a systematic row predicts x̂[r]).  ``x_hat`` (L[, C])
+    and ``y`` (S[, C]) host arrays → (S,)."""
+    x = np.asarray(x_hat, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    par = rows >= lin.L
+    pred = np.empty(y.shape)
+    pred[~par] = x[rows[~par]]
+    if par.any():
+        from ..kernels import ops
+        xt = bk.as_f64(x.reshape(lin.L, -1), lin.device)
+        p = ops.parity_contract(lin.pkey, lin.L,
+                                lin.parity_ctrs(rows[par] - lin.L), xt)
+        pred[par] = p.cpu().numpy().reshape(pred[par].shape)
+    res = np.abs(y - pred) / (1.0 + np.abs(y))
+    return res.max(axis=-1) if res.ndim == 2 else res
 
 
 class _DeviceDecodeGroup:

@@ -14,8 +14,11 @@ Two backends:
   ``jnp.linalg.solve``, not a Pallas kernel, so a library solve is its
   counterpart.
 
-The Monte-Carlo sampling (``simulate_batch``, ``simulate_chunks_np``)
-belongs to the simulator and is not ported yet.
+The Monte-Carlo sampler (``simulate_batch``) runs the numpy Generator loop
+(``simulate_chunks_np``, the reference's, bit-stable) or, on ``torch``,
+the counterpart of the reference's jitted kernel: per-master active-node
+gathers, exponential draws from a seeded ``torch.Generator`` on the
+device and the completion rule as a sort + cumsum, in bounded chunks.
 
 Public entry points:
 
@@ -25,6 +28,9 @@ Public entry points:
 * ``sample_delays`` — turn pre-drawn Exp(1) variates into T = T_tr + T_cp
   delays, with optional heavy-tail ``straggle_p``/``straggle_factor``
   throttling (burstable-instance CPU-credit exhaustion).
+* ``simulate_batch`` — (trials, M) Monte-Carlo completion delays for a full
+  plan in one call; the device path behind
+  ``sim.simulate_plan(backend="torch")``.
 * ``decode_batch`` — batched exactly-L MDS decode with a systematic-prefix
   fast path: when the generator's top L rows are the identity and a task
   received only those rows, the "solve" is a row permutation and is applied
@@ -36,18 +42,21 @@ Public entry points:
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..obs import current_tracer
+from ..obs import current_tracer, device_span
 
 __all__ = [
     "completion_times",
     "delivered_by",
     "sample_delays",
+    "simulate_batch",
+    "simulate_chunks_np",
     "decode_batch",
     "plan_decode",
     "DecodePlan",
@@ -111,8 +120,13 @@ def _completion_np(T: np.ndarray, loads: np.ndarray, need: np.ndarray,
 
 
 def _completion_torch(T: torch.Tensor, loads: torch.Tensor,
-                      need: torch.Tensor, needs_all: bool) -> torch.Tensor:
-    """The numpy rule on float64 tensors (stable sort, cumsum, first hit)."""
+                      need: torch.Tensor, needs_all: bool,
+                      rel: float = 0.0) -> torch.Tensor:
+    """The numpy rule on tensors (stable sort, cumsum, first hit).
+
+    ``rel`` widens the ``need - 1e-9`` threshold by ``rel * need``: the
+    float32 Monte-Carlo path absorbs its cumsum rounding with it when the
+    coverage is exact (0 keeps the float64 rule bit for bit)."""
     inf = torch.tensor(float("inf"), dtype=T.dtype, device=T.device)
     active = loads > 0
     Ti = torch.where(active & torch.isfinite(T), T, inf)
@@ -124,7 +138,7 @@ def _completion_torch(T: torch.Tensor, loads: torch.Tensor,
     l_s = torch.gather(torch.where(active, loads, torch.zeros_like(loads)),
                        -1, order)
     cum = torch.cumsum(l_s, dim=-1)
-    hit = cum >= need[..., None] - 1e-9
+    hit = cum >= need[..., None] - 1e-9 - rel * need[..., None]
     first = torch.argmax(hit.to(torch.uint8), dim=-1)
     ok = torch.gather(hit, -1, first[..., None])[..., 0]
     out = torch.gather(T_s, -1, first[..., None])[..., 0]
@@ -274,6 +288,155 @@ class ExponentialBlock:
             self._pos = take
             need -= take
         return np.concatenate([p for p in parts if p.size])
+
+
+# ---------------------------------------------------------------------------
+# Monte-Carlo (sample + complete, device-resident on torch)
+# ---------------------------------------------------------------------------
+
+def _gather_active(l, k, b, a, u, gamma, dtype):
+    """Per-master active-column gather → (idx, loads, c_tr, shift, c_cp).
+
+    Returns (M, A) coefficient arrays with T = c_tr·e1 + shift + c_cp·e2;
+    padded slots have shift = +inf (never arrive) and zero load.  Column 0
+    (the master's local processor) gets c_tr = 0 — no communication.
+    """
+    M = l.shape[0]
+    counts = (l > 0).sum(axis=1)
+    A = max(int(counts.max()), 1)
+    idx = np.zeros((M, A), dtype=np.int64)
+    pad = np.ones((M, A), dtype=bool)
+    for m in range(M):
+        nz = np.nonzero(l[m] > 0)[0]
+        idx[m, :nz.size] = nz
+        pad[m, nz.size:] = False
+    act = pad          # True where a real node sits
+    ga = lambda arr: np.take_along_axis(np.asarray(arr, np.float64), idx, 1)
+    l_a = np.where(act, ga(l), 0.0)
+    k_a, b_a = ga(k), ga(b)
+    a_a, u_a, g_a = ga(a), ga(u), ga(gamma)
+    c_tr = np.where(act, l_a / np.maximum(b_a * g_a, _EPS), 0.0)
+    c_tr[idx == 0] = 0.0                       # local node: no comm delay
+    shift = np.where(act, a_a * l_a / np.maximum(k_a, _EPS), np.inf)
+    c_cp = np.where(act, l_a / np.maximum(k_a * u_a, _EPS), 0.0)
+    return (idx, l_a.astype(dtype), c_tr.astype(dtype),
+            shift.astype(dtype), c_cp.astype(dtype))
+
+
+def simulate_chunks_np(rng: np.random.Generator, l, k, b, a, u, gamma, L,
+                       trials: int, *, needs_all: bool = False,
+                       straggle_p: float = 0.0, straggle_factor: float = 8.0,
+                       chunk: int = 20_000):
+    """Yield (r, M) completion-delay chunks from the Generator-based
+    sampler — the single numpy Monte-Carlo loop behind both
+    ``simulate_batch(backend="numpy")`` and ``sim.montecarlo``'s
+    streaming aggregation (bit-stable for a given Generator + chunk)."""
+    from ..core.delays import sample_total
+    l = np.asarray(l, dtype=np.float64)
+    L = np.atleast_1d(np.asarray(L, dtype=np.float64))
+    chunk = max(int(chunk), 1)
+    done = 0
+    while done < trials:
+        r = min(chunk, trials - done)
+        T = sample_total(rng, (r,), l, k, b, a, u, gamma, local_col0=True)
+        if straggle_p > 0:
+            throttled = rng.random(T.shape) < straggle_p
+            T = np.where(throttled, T * straggle_factor, T)
+        yield completion_times(T, l[None], L[None], needs_all=needs_all)
+        done += r
+
+
+def _simulate_torch(gen: torch.Generator, c_tr: torch.Tensor,
+                    shift: torch.Tensor, c_cp: torch.Tensor,
+                    loads: torch.Tensor, need: torch.Tensor, trials: int,
+                    chunk: int, needs_all: bool, straggle_p: float,
+                    straggle_factor: float) -> torch.Tensor:
+    """(trials, M) completion delays on the tensors' device, ``chunk``
+    trials at a time (every temporary is (chunk, M, A)).
+
+    Each chunk draws its two (chunk, M, A) exponential blocks (and the
+    throttling uniforms) from ``gen`` and completes them by the numpy
+    rule: stable sort of the arrivals, cumsum of the loads, first hit."""
+    dt = c_tr.dtype
+    # need-1e-9 matches numpy; the relative term absorbs float32 cumsum
+    # rounding when coverage is exact (never larger than a fraction of one
+    # coded row at L ~ 1e4)
+    rel = 1e-6 if dt == torch.float32 else 0.0
+    M, A = c_tr.shape
+    out = torch.empty((trials, M), dtype=dt, device=c_tr.device)
+    for lo in range(0, trials, chunk):
+        r = min(chunk, trials - lo)
+        e = torch.empty((2, r, M, A), dtype=dt, device=c_tr.device)
+        e.exponential_(generator=gen)
+        T = c_tr * e[0] + shift + c_cp * e[1]          # padded nodes: +inf
+        if straggle_p > 0:
+            u01 = torch.rand((r, M, A), dtype=dt, device=c_tr.device,
+                             generator=gen)
+            T = torch.where(u01 < straggle_p, T * straggle_factor, T)
+        out[lo:lo + r] = _completion_torch(T, loads.expand(r, M, A),
+                                           need.expand(r, M), needs_all,
+                                           rel=rel)
+    return out
+
+
+def simulate_batch(l, k, b, a, u, gamma, L, trials: int, *,
+                   seed: "int | np.random.Generator" = 0,
+                   needs_all: bool = False,
+                   straggle_p: float = 0.0, straggle_factor: float = 8.0,
+                   backend: str = "torch", dtype=torch.float32,
+                   chunk: Optional[int] = None, device=None) -> np.ndarray:
+    """(trials, M) Monte-Carlo completion delays for a full plan, one call.
+
+    All inputs are the dense (M, N+1) plan/scenario arrays (column 0 = the
+    master's local processor, communication-free).  The torch path runs
+    on ``device`` (default ``cuda``) over each master's *active* worker
+    columns (:func:`_gather_active`), ``chunk`` trials at a time (default
+    65 536); float32 by default — delay-model rounding is orders of
+    magnitude below Monte-Carlo noise at any trial count this path exists
+    for — or float64 on request.  Its draws come from a
+    ``torch.Generator`` seeded with the integer ``seed`` (drawn from it
+    when a numpy Generator is passed), so results are reproducible on one
+    device but *not* bit-equal to the numpy Generator stream — the two
+    backends agree statistically, which is what the tests assert.
+
+    ``backend="numpy"`` runs :func:`simulate_chunks_np` (default chunk
+    4096; a Generator is also accepted as ``seed``, for bit-stable shared
+    streams).
+    """
+    check_backend(backend)
+    l = np.asarray(l, dtype=np.float64)
+    trials = int(trials)
+    if backend == "numpy":
+        rng = (seed if isinstance(seed, np.random.Generator)
+               else np.random.default_rng(seed))
+        return np.concatenate(list(simulate_chunks_np(
+            rng, l, k, b, a, u, gamma, L, trials, needs_all=needs_all,
+            straggle_p=straggle_p, straggle_factor=straggle_factor,
+            chunk=4096 if chunk is None else chunk)))
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype must be torch.float32 or torch.float64, "
+                         f"got {dtype}")
+    dev = resolve_device(device)
+    if isinstance(seed, np.random.Generator):
+        seed = int(seed.integers(np.iinfo(np.int64).max))
+    L = np.atleast_1d(np.asarray(L, dtype=np.float64))
+    _, l_a, c_tr, shift, c_cp = _gather_active(l, k, b, a, u, gamma,
+                                               np.float64)
+    t = lambda x: torch.from_numpy(np.array(x)).to(  # noqa
+        device=dev, dtype=dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    chunk = max(min(65_536 if chunk is None else int(chunk), trials), 1)
+    # device_span fences only while a tracer records, so the launch queue
+    # is untouched when tracing is off
+    with device_span("simulate_batch", cat="kernel",
+                     args={"trials": trials, "M": int(l.shape[0]),
+                           "chunks": math.ceil(trials / chunk)}) as fence:
+        comp = fence(_simulate_torch(
+            gen, t(c_tr), t(shift), t(c_cp), t(l_a),
+            t(np.broadcast_to(L, (l.shape[0],))), trials, chunk,
+            bool(needs_all), float(straggle_p), float(straggle_factor)))
+    return comp.to(torch.float64).cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

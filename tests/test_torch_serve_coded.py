@@ -365,7 +365,28 @@ def test_lu_factor_torch_in_place_on_column_major():
     np.testing.assert_allclose(M @ x, b, atol=1e-10)
 
 
-@pytest.mark.parametrize("scope", ["ffn", "trunk"])
-def test_later_scopes_raise_not_implemented(scope):
-    with pytest.raises(NotImplementedError, match="ffn/trunk-scope slice"):
-        CodedServingBridge(coding_scope=scope, device="cpu")
+@pytest.mark.parametrize("backend", ["torch", "numpy"])
+def test_launcher_coded_demo_runs_products_on_the_device(monkeypatch, capsys,
+                                                         backend):
+    """``python -m repro_torch.launch.serve --coded`` (backend "torch")
+    computes its shard products through the packed device product — on
+    the CPU only because ``--device cpu`` is given; the numpy backend
+    keeps them on the host."""
+    from repro_torch.serve_coded import run_coded_smoke
+    calls = []
+    orig = tpacking.PackedShards.products_device
+
+    def products_device(self, X, **kw):
+        calls.append(self.total)
+        return orig(self, X, **kw)
+    monkeypatch.setattr(tpacking.PackedShards, "products_device",
+                        products_device)
+    if backend == "torch":
+        assert tserve.main(["--coded", "--device", "cpu", "--requests", "2",
+                            "--prompt-len", "8", "--gen-len", "2"]) == 0
+    else:
+        assert run_coded_smoke(backend="numpy", device="cpu", n_requests=2,
+                               prompt_len=8, gen_len=2,
+                               policies=("edf",)) == 0
+    assert "all decoded coded matmuls matched" in capsys.readouterr().out
+    assert bool(calls) == (backend == "torch")
