@@ -31,7 +31,9 @@ exits non-zero):
      the SM clock and power beside ``matmul`` and its library call; the
      GEMM kernels and ``coded_matvec`` against their plain versions at
      ragged, unaligned and split-K edge shapes, and repeated calls of
-     each at its main shapes bit-equal;
+     each at its main shapes bit-equal; ``coded_matvec`` at
+     deepseek-v3-671b's head tiles (L = 129 536, K = 7 168, C = 4) and
+     the parity kernels at phase n's frozen DeepSeek solve;
   d. uncoded serving of llama3.2-1b at its published widths (bf16):
      prefill and decode tokens/s;
   e. coded serving of llama3.2-1b at its published widths: head scope,
@@ -62,11 +64,28 @@ exits non-zero):
      (L = 65 536 head rows, D = 4096) on seed 1 and the largest frozen
      parity solve of seeds 2-9, raising unless ``decode_ok`` holds at the
      5e-4 head tolerance and the argmax match is 1.0;
+  l. coded serving of llama3.2-1b in trunk scope at its published widths
+     (seed from a weightless probe of the frozen plans, ``plan_probe``),
+     gated on the uncoded twin's tokens; a faulted serve at 2 layers;
+  m. the paper's Monte Carlo on the card against numpy;
+  n. the remaining mixers at their published widths, each model from a
+     clean card: deepseek-v3-671b (MLA, MoE, MTP; cut to 2 layers),
+     jamba-1.5-large-398b (attention, Mamba, MoE; 3 layers),
+     gemma3-12b (sliding-window rings; full depth, a 1 536-token prompt
+     that wraps them), dbrx-132b (MoE; 4 layers), internvl2-26b (vision
+     frontend) and seamless-m4t-large-v2 (encoder-decoder): init, the
+     frontend forward (``mtp_logits``, patches, frames), prefill + decode
+     against the full forward at phase j's gate (MoE uncapped), an
+     uncoded serve 4 x 32 x 16, and the head probe's parity rows; then
+     deepseek-v3-671b served with a coded head (virtual parity, the first
+     seed of 0-7 whose frozen head solve's float64 minor is under 30
+     GiB), gated at the 5e-4 head tolerance, argmax 1.0 and tokens equal
+     to its uncoded twin's;
   i. one JSON line with every kernel's numbers and its launches on the
-     main path (phases e to k, counts reset just before e), then the
+     main path (phases e to n, counts reset just before e), then the
      result line.
 
-Phases j and k start from a clean card (every model and bridge released)
+Phases j to n start from a clean card (every model and bridge released)
 and print the memory still allocated.
 
 Exits non-zero without a result when no CUDA device is visible, or when
@@ -159,6 +178,34 @@ RWKV_LOGIT_TOL = 5e-2
 #: that computed no product; a plan depends on L, the pool, the arrivals
 #: and the delays, not on the weights.
 RWKV_CODED_SEEDS = (1, 2)
+#: phase n's models: (arch, the depth cut as dataclass fields or None for
+#: the published depth, why); widths are never cut
+DEEPSEEK = "deepseek-v3-671b"
+MIXER_MODELS = (
+    (DEEPSEEK, dict(prefix=1, n_repeats=1),
+     "61 -> 2 layers (1 dense prefix + 1 MoE layer): the full model is "
+     "1.3 TB"),
+    ("jamba-1.5-large-398b", dict(block=3, n_repeats=1),
+     "72 -> 3 layers (the block's attn + swiglu, mamba + moe, mamba + "
+     "swiglu): the full model is 0.8 TB"),
+    ("gemma3-12b", None, "not cut"),
+    ("dbrx-132b", dict(n_repeats=4),
+     "40 -> 4 layers: the full model is 0.26 TB"),
+    ("internvl2-26b", None, "not cut"),
+    ("seamless-m4t-large-v2", None, "not cut"),
+)
+#: phase n's uncoded serve (batch, prompt, generated tokens), as phase d's
+MIXER_SERVE = (4, 32, 16)
+#: phase n's decode gate (batch, prompt, decode steps) against the full
+#: forward over prompt + steps tokens; gemma3's prompt wraps its 1 024-slot
+#: rings
+MIXER_GATE = {"gemma3-12b": (1, 1536, 16)}
+MIXER_GATE_DEFAULT = (4, 32, 3)
+#: phase n's DeepSeek seed: the first of these whose frozen head plan
+#: (``plan_probe``, head scope) needs a float64 minor under the limit
+MIXER_SEEDS = range(8)
+MINOR_LIMIT_GIB = 30.0
+
 #: phase c's WKV shapes (B, H, T): rwkv6-7b's 64 heads of 64
 WKV_H, WKV_K = 64, 64
 WKV_SHAPES = {"serving prefill": (4, 32), "decode": (4, 1),
@@ -262,7 +309,7 @@ def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def phase_c(dev) -> dict:
+def phase_c(dev, deepseek_s: int) -> dict:
     """Each kernel against its plain version at its path's shapes."""
     import numpy as np
     import torch
@@ -593,6 +640,10 @@ def phase_c(dev) -> dict:
     del got, want, two, y, kc, kj, dctrs_t, dcols_t
     torch.cuda.empty_cache()
     rows["parity_contract"]["trunk"] = trunk_contract_rows(dev, gen, key)
+    (rows["coded_matvec"]["deepseek_head"],
+     rows["counter_parity_rows"]["deepseek_chunk"],
+     rows["parity_contract"]["deepseek_head"]) = \
+        deepseek_head_rows(dev, gen, key, deepseek_s)
 
     # -- gen_parity_matvec: phase e's parity lanes against resident W ------
     w = torch.randn((L_HEAD, D), generator=gen, device=dev) * 0.02
@@ -744,6 +795,130 @@ def trunk_contract_rows(dev, gen, key) -> dict:
                                      f"disagrees ({err} > {tol})")
             out[f"L={L} s={s} C={C}"] = row
     return out
+
+
+def deepseek_coded_seed() -> tuple:
+    """(seed, head parity rows s) of phase n's coded DeepSeek serve: the
+    first of MIXER_SEEDS whose frozen head plan needs a parity solve whose
+    float64 minor (8 s^2 bytes) is under MINOR_LIMIT_GIB (``plan_probe``,
+    head scope; only the head's height matters, so the published config
+    is probed)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(DEEPSEEK)
+    sizes = {}
+    for seed in MIXER_SEEDS:
+        s = max(plan_probe(cfg, seed, scope="head")["head"])
+        sizes[seed] = (s, round(8 * s * s / 2**30, 2))
+        if 0 < s and 8 * s * s / 2**30 < MINOR_LIMIT_GIB:
+            print(f"[n] {DEEPSEEK} head probe: seed -> (parity rows s, "
+                  f"float64 minor GiB): {sizes}; chosen seed {seed}",
+                  flush=True)
+            return seed, s
+    raise AssertionError(f"no seed's head minor fits: {sizes}")
+
+
+def deepseek_head_rows(dev, gen, key, s: int) -> tuple:
+    """Row 2d: ``coded_matvec`` at DeepSeek-V3's packed head tiles (L =
+    129 536 rows in 1 012 tiles of 128, K = d_model 7 168, C = 4, float64
+    sums); and the parity kernels at phase n's frozen solve, s parity rows
+    against the L - s known columns: ``counter_parity_rows`` at one chunk
+    of the minor build, ``parity_contract`` (the decode's known term, C =
+    4) -- each against its plain version."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import mds
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import padded_vocab
+    from repro_torch.serve_coded.packing import DECODE_CHUNK
+    cfg = get_config(DEEPSEEK)
+    L, K = padded_vocab(cfg), cfg.d_model
+    nt = -(-L // TILE)
+    tiles = torch.randn((nt, TILE, K), generator=gen, device=dev) * 0.02
+    flat = tiles.reshape(-1, K)
+    x = torch.randn((K, BATCH), generator=gen, device=dev)
+    got = ops.coded_shard_matmul_batch(tiles, x).reshape(-1, BATCH)
+    want = ref.coded_matvec_ref(flat, x, out_dtype=torch.float64)
+    err, tol = max_err(got, want), 1e-12 * (1 + float(want.abs().max()))
+    print_matvec_plan("deepseek head", flat, x)
+    mv = dict(
+        ms=time_ms(lambda: ops.coded_shard_matmul_batch(tiles, x)),
+        queued_ms=time_queued_ms(
+            lambda: ops.coded_shard_matmul_batch(tiles, x)),
+        plain_ms=time_ms(lambda: ref.coded_matvec_ref(
+            flat, x, out_dtype=torch.float64)),
+        library_ms=time_ms(lambda: torch.matmul(flat, x)),
+        library_queued_ms=time_queued_ms(lambda: torch.matmul(flat, x)),
+        bound_ms=bound(4.0 * (nt * TILE * K + K * BATCH)
+                       + 8.0 * nt * TILE * BATCH,
+                       [2.0 * nt * TILE * K * BATCH / F64_FLOP_PER_S])[0],
+        max_abs_err=err)
+    print(f"[c] coded_matvec at {DEEPSEEK}'s head ({nt} tiles of {TILE} x "
+          f"K {K}, C {BATCH}, float64 sums; row 2d): max_abs_err={err:.3e} "
+          f"(tol {tol:.3e}) kernel {mv['ms']:.4f} ms, queued "
+          f"{mv['queued_ms']:.4f}, plain {mv['plain_ms']:.4f}, library "
+          f"{mv['library_ms']:.4f} (queued {mv['library_queued_ms']:.4f}), "
+          f"bound {mv['bound_ms']:.4f} ms", flush=True)
+    if err > tol:
+        raise AssertionError(f"coded_matvec at the DeepSeek head disagrees "
+                             f"({err} > {tol})")
+    del tiles, flat, got, want
+
+    m = L - s
+    ctrs = mds.parity_counters(np.arange(s), 0)
+    cols = np.sort(np.random.default_rng(0).permutation(L)[:m])
+    ctrs_t = torch.from_numpy(ctrs.astype(np.int64)).to(dev)
+    cols_t = torch.from_numpy(cols).to(dev)
+    kc = torch.from_numpy(ctrs.view(np.int32)).to(dev)
+    kj = cols_t.to(torch.int32)
+    scale = ops.parity_scale(L)
+    chunk = DECODE_CHUNK // m
+    got = ops.counter_parity_rows(key, L, kc[:chunk], cols=kj)
+    plain_ms, want = time_once(lambda: ref.counter_parity_rows_ref(
+        key, scale, ctrs_t[:chunk], cols_t))
+    if not torch.equal(got, want):
+        raise AssertionError("counter_parity_rows at the DeepSeek minor "
+                             "chunk is not bit-equal")
+    ents = chunk * m
+    rows_chunk = dict(
+        ms=time_ms(lambda: ops.counter_parity_rows(key, L, kc[:chunk],
+                                                   cols=kj)),
+        queued_ms=time_queued_ms(lambda: ops.counter_parity_rows(
+            key, L, kc[:chunk], cols=kj)),
+        plain_ms=plain_ms,
+        bound_ms=bound(4.0 * (ents + chunk + m), parity_op_times(ents))[0],
+        max_abs_err=0.0)
+    print(f"[c] counter_parity_rows at {DEEPSEEK}'s minor chunk {chunk} x "
+          f"{m} gathered (L {L}): bit-equal; kernel {rows_chunk['ms']:.3f} "
+          f"ms, queued {rows_chunk['queued_ms']:.3f}, plain {plain_ms:.3f}, "
+          f"bound {rows_chunk['bound_ms']:.3f} ms", flush=True)
+    del got, want
+    y = torch.randn((m, BATCH), generator=gen, device=dev,
+                    dtype=torch.float64)
+    got = ops.parity_contract(key, L, kc, y, cols=kj)
+    plain_ms, want = time_once(lambda: ref.parity_contract_ref(
+        key, scale, ctrs_t, cols_t, y))
+    err, tol = max_err(got, want), 1e-12 * (1 + float(want.abs().max()))
+    ents = s * m
+    known = dict(
+        ms=time_ms(lambda: ops.parity_contract(key, L, kc, y, cols=kj)),
+        queued_ms=time_queued_ms(lambda: ops.parity_contract(
+            key, L, kc, y, cols=kj)),
+        plain_ms=plain_ms,
+        bound_ms=bound(4.0 * (s + m) + 8.0 * (m + s) * BATCH,
+                       parity_op_times(ents)
+                       + [2.0 * ents * BATCH / F64_FLOP_PER_S])[0],
+        max_abs_err=err)
+    print(f"[c] parity_contract at {DEEPSEEK}'s known term, {s} parity rows "
+          f"x {m} known, C {BATCH}: max_abs_err={err:.3e} (tol {tol:.3e}) "
+          f"kernel {known['ms']:.3f} ms, queued {known['queued_ms']:.3f}, "
+          f"plain {plain_ms:.1f}, bound {known['bound_ms']:.3f} ms",
+          flush=True)
+    if err > tol:
+        raise AssertionError(f"parity_contract at the DeepSeek known term "
+                             f"disagrees ({err} > {tol})")
+    del got, want, y, kc, kj, ctrs_t, cols_t
+    torch.cuda.empty_cache()
+    return mv, rows_chunk, known
 
 
 def repeat_equal(label: str, first, fn, times: int = 16) -> None:
@@ -1240,8 +1415,10 @@ def _frozen_solve_sizes(bridge) -> list:
 
 
 def _coded_head(dev, seed: int, product_dtype, arch: str = ARCH,
-                phase: str = "e") -> object:
-    """One full-width coded-head serve; returns its ServeReport."""
+                phase: str = "e", twin: bool = False) -> object:
+    """One full-width coded-head serve; returns its ServeReport.  With
+    ``twin`` the same bridge then serves the requests uncoded, and the
+    tokens must be equal."""
     import torch
     from repro_torch import kernels
     from repro_torch.obs import Tracer
@@ -1262,11 +1439,12 @@ def _coded_head(dev, seed: int, product_dtype, arch: str = ARCH,
     tag = f"seed {seed}, {str(product_dtype).split('.')[-1]} products"
     print(f"[{phase}] {tag}: coded head L={bridge.head.L} D={bridge.head.D}; "
           f"setup {time.perf_counter() - t0:.1f} s", flush=True)
-    reqs = synthetic_requests(CODED_REQUESTS, masters=1,
-                              vocab=bridge._model["cfg"].vocab,
-                              prompt_len=CODED_PROMPT, gen_len=CODED_GEN,
-                              rate=0.004, seed=seed)
-    rep = bridge.serve(reqs)
+    def reqs():
+        return synthetic_requests(CODED_REQUESTS, masters=1,
+                                  vocab=bridge._model["cfg"].vocab,
+                                  prompt_len=CODED_PROMPT,
+                                  gen_len=CODED_GEN, rate=0.004, seed=seed)
+    rep = bridge.serve(reqs())
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev)
     sizes = _frozen_solve_sizes(bridge)
@@ -1306,6 +1484,16 @@ def _coded_head(dev, seed: int, product_dtype, arch: str = ARCH,
               "parity_contract") + (("wkv6",) if arch == RWKV else ()):
         if grew[k] <= 0:
             raise AssertionError(f"phase {phase} never launched {k}")
+    if twin:
+        bridge.coded, bridge.tracer = False, None
+        t0 = time.perf_counter()
+        plain = bridge.serve(reqs())
+        print(f"[{phase}] {tag}: uncoded twin wall "
+              f"{time.perf_counter() - t0:.2f} s, tokens equal "
+              f"{plain.tokens == rep.tokens}", flush=True)
+        if plain.tokens != rep.tokens:
+            raise AssertionError(f"phase {phase}: coded tokens differ from "
+                                 f"the uncoded twin's")
     # the bridge's serve closures form reference cycles: collect them so
     # its decode minor is freed before the next seed's is built
     del bridge
@@ -1410,7 +1598,9 @@ def phase_j(dev) -> None:
 
 def _leaves(tree):
     if isinstance(tree, dict):
-        for v in tree.values():
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree
@@ -1433,7 +1623,7 @@ def phase_k(dev) -> None:
 #: phase l's serve: 4 requests x prompt 32 x gen 8 on 4 slots of one
 #: master, coding_scope="trunk" (16 x 7 + 1 = 113 coded matmuls a step)
 TRUNK_REQUESTS, TRUNK_PROMPT, TRUNK_GEN, TRUNK_SLOTS = 4, 32, 8, 4
-#: phase l's seed candidates, probed in order (``trunk_plan_probe``)
+#: phase l's seed candidates, probed in order (``plan_probe``)
 TRUNK_SEED_CANDIDATES = range(10)
 #: phase l's faulted serve: the published widths at 2 of the 16 layers
 TRUNK_FAULT_LAYERS = 2
@@ -1441,7 +1631,7 @@ TRUNK_FAULT_LAYERS = 2
 
 class _ProbeTrunk:
     """``HostTrunk``'s interface without weights, for
-    :func:`trunk_plan_probe`: each layer's stages go through the bridge's
+    :func:`plan_probe`: each layer's stages go through the bridge's
     grouped hook on zero activations one column wide; a weight is a
     broadcast (L, 1) zero array, so only the heights exist."""
 
@@ -1470,10 +1660,26 @@ class _ProbeTrunk:
         return np.zeros((R, T, 1))
 
 
-def trunk_plan_probe(cfg, seed: int) -> dict:
-    """The frozen prefix plans of phase l's trunk-scope serve at ``seed``,
-    from the bridge's timing alone: the serve runs with a weightless trunk
-    (:class:`_ProbeTrunk`) and stage executions that return zeros, so no
+def _probe_serving_fns(cfg, return_hidden=False):
+    """``serving_fns`` for :func:`plan_probe`'s head scope: no model, zero
+    hidden states one column wide, no caches."""
+    import torch
+
+    def prefill_fn(p, batch, caches):
+        return None, caches, torch.zeros((batch["tokens"].shape[0], 1, 1))
+
+    def decode_fn(p, toks, pos, caches):
+        return None, caches, torch.zeros((toks.shape[0], 1, 1))
+
+    return prefill_fn, decode_fn
+
+
+def plan_probe(cfg, seed: int, scope: str = "trunk") -> dict:
+    """The frozen prefix plans of a coded serve at ``seed`` -- phase l's
+    trunk-scope serve, or with ``scope="head"`` phase e's head-scope
+    serve (CODED_*) -- from the bridge's timing alone: the serve runs
+    without weights (a weightless trunk, :class:`_ProbeTrunk`, or zero
+    hidden states) and with stage executions that return zeros, so no
     product and no decode is computed.  A plan depends on the heights,
     the pool, the arrivals and the delays, not on the weights.  Returns
     ``{key: [parity rows of each frozen plan]}``."""
@@ -1482,11 +1688,18 @@ def trunk_plan_probe(cfg, seed: int) -> dict:
     from repro_torch.serve_coded import CodedServingBridge, synthetic_requests
     from repro_torch.serve_coded import bridge as br
     from repro_torch.stream import AdmissionConfig
-    saved = (serve.build_model, serve.head_matrix, br.HostTrunk,
-             br._BarrierExecutor.execute, br.CodedLinear.parity_ctrs)
+    n_req, prompt, gen, slots = (
+        (TRUNK_REQUESTS, TRUNK_PROMPT, TRUNK_GEN, TRUNK_SLOTS)
+        if scope == "trunk" else
+        (CODED_REQUESTS, CODED_PROMPT, CODED_GEN, CODED_SLOTS))
+    saved = (serve.build_model, serve.head_matrix, serve.serving_fns,
+             serve.zero_caches, br.HostTrunk, br._BarrierExecutor.execute,
+             br.CodedLinear.parity_ctrs)
     serve.build_model = lambda *a, **kw: (cfg, None)
     serve.head_matrix = lambda c, p: np.broadcast_to(
         0.0, (padded_vocab(cfg), 1))
+    serve.serving_fns = _probe_serving_fns
+    serve.zero_caches = lambda *a, **kw: {}
     br.HostTrunk = _ProbeTrunk
     br._BarrierExecutor.execute = lambda self, items, **kw: {
         k: np.zeros((X.shape[0], self.linears[k].L)) for k, X in items}
@@ -1496,18 +1709,18 @@ def trunk_plan_probe(cfg, seed: int) -> dict:
                                                             np.uint32)
     try:
         bridge = CodedServingBridge(
-            masters=1, arch=ARCH, smoke=False, seed=seed,
-            slots_per_master=TRUNK_SLOTS, coding_scope="trunk",
+            masters=1, arch=cfg.name, smoke=False, seed=seed,
+            slots_per_master=slots, coding_scope=scope,
             backend="numpy", parity_storage="virtual", verify=False,
             admission=AdmissionConfig(policy="edf"), device="cpu")
-        bridge._setup_model(TRUNK_PROMPT + TRUNK_GEN + 8)
+        bridge._setup_model(prompt + gen + 8)
         bridge.serve(synthetic_requests(
-            TRUNK_REQUESTS, masters=1, vocab=cfg.vocab,
-            prompt_len=TRUNK_PROMPT, gen_len=TRUNK_GEN, rate=0.004,
-            seed=seed))
+            n_req, masters=1, vocab=cfg.vocab, prompt_len=prompt,
+            gen_len=gen, rate=0.004, seed=seed))
     finally:
-        (serve.build_model, serve.head_matrix, br.HostTrunk,
-         br._BarrierExecutor.execute, br.CodedLinear.parity_ctrs) = saved
+        (serve.build_model, serve.head_matrix, serve.serving_fns,
+         serve.zero_caches, br.HostTrunk, br._BarrierExecutor.execute,
+         br.CodedLinear.parity_ctrs) = saved
     return frozen_parity_rows(bridge)
 
 
@@ -1567,10 +1780,10 @@ def _answered(rep, tag: str) -> None:
 def _pick_trunk_seed(cfg, head_solve: bool = True) -> int:
     """The first candidate seed whose frozen prefixes need a parity solve
     in some trunk key and — with ``head_solve`` — in the head, or else
-    none in the head (``trunk_plan_probe``)."""
+    none in the head (``plan_probe``)."""
     sizes = {}
     for seed in TRUNK_SEED_CANDIDATES:
-        fr = trunk_plan_probe(cfg, seed)
+        fr = plan_probe(cfg, seed)
         head = fr.pop("head")
         trunk = sum(any(x > 0 for x in v) for v in fr.values())
         sizes[seed] = (head, trunk)
@@ -1785,6 +1998,233 @@ def phase_m(dev) -> None:
                                  f"KS {ks:.4f}, repeatable {same}")
 
 
+def _cut(cfg, cut):
+    """``cfg`` at a depth cut: ``prefix`` / ``block`` keep their first
+    layers, ``n_repeats`` is set; widths are kept."""
+    import dataclasses
+    if cut is None:
+        return cfg
+    kw = {}
+    for k, v in cut.items():
+        kw[k] = getattr(cfg, k)[:v] if k in ("prefix", "block") else v
+    return dataclasses.replace(cfg, **kw)
+
+
+def _uncapped(cfg):
+    """The MoE capacity that drops no token: prefill + decode equals the
+    full forward only without capacity competition."""
+    import dataclasses
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=64.0))
+
+
+def _features(cfg, B: int, dev) -> dict:
+    """The frontend's stub features (0.1, float32), as the reference's
+    launcher and smoke tests feed them."""
+    import torch
+    shape = (B, cfg.frontend_len, cfg.frontend_dim)
+    if cfg.enc_dec:
+        return {"enc_feats": torch.full(shape, 0.1, device=dev)}
+    if cfg.frontend == "vision":
+        return {"patch_feats": torch.full(shape, 0.1, device=dev)}
+    return {}
+
+
+def _decode_gate(tag: str, cfg, params, dev) -> None:
+    """Prefill of P tokens + S decode steps against the full forward over
+    the same P + S tokens (positions P - 1 .. P + S - 1), at an uncapped
+    MoE capacity, at phase j's gate.  The encoder-decoder's decode steps
+    get the encoder output; a vision model's serving is text-only, so its
+    oracle is a prefill over all P + S tokens (the last position)."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step, model_fwd, prefill
+    from repro_torch.models.lm import _encoder
+    cfg = _uncapped(cfg)
+    B, P, S = MIXER_GATE.get(cfg.name, MIXER_GATE_DEFAULT)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(B, P + S))).to(dev)
+    feats = {k: v for k, v in _features(cfg, B, dev).items()
+             if k == "enc_feats"}
+    vision = cfg.frontend == "vision"
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if vision:
+            full, _ = prefill(params, {"tokens": toks},
+                              serve.zero_caches(cfg, B, P + S, device=dev),
+                              cfg=cfg)
+        else:
+            full = model_fwd(params, {"tokens": toks, **feats},
+                             cfg=cfg)["logits"][:, P - 1:]
+        full = full.float()
+        torch.cuda.synchronize()
+        t_full = time.perf_counter() - t0
+        enc = _encoder(params, feats["enc_feats"], cfg=cfg) \
+            if cfg.enc_dec else None
+        caches = serve.zero_caches(cfg, B, P + S + 8, device=dev)
+        lg, caches = prefill(params, {"tokens": toks[:, :P], **feats},
+                             caches, cfg=cfg)
+        inc = [lg]
+        for i in range(S):
+            pos = torch.full((B,), P + i, dtype=torch.int64, device=dev)
+            lg, caches = decode_step(params, toks[:, P + i:P + i + 1], pos,
+                                     caches, cfg=cfg, enc_out=enc)
+            inc.append(lg)
+        inc = torch.cat(inc[-1:] if vision else inc, dim=1).float()
+    err = max_err(inc, full)
+    top = float(full.abs().max())
+    tol = RWKV_LOGIT_TOL * (1 + top)
+    agree = float((inc.argmax(-1) == full.argmax(-1)).float().mean())
+    finite = bool(torch.isfinite(inc).all() and torch.isfinite(full).all())
+    # by position (over the batch): a router's top-k flipped by a bf16
+    # rounding moves one token's logits, other positions stay small
+    by_pos = (inc - full).abs().amax(dim=(0, 2)).tolist()
+    print(f"[n] {tag}: prefill {P} + {S} decode steps (batch {B}) vs the "
+          f"{'prefill' if vision else 'full forward'} over {P + S} tokens "
+          f"({t_full:.2f} s): max |dlogit| {err:.4e} (tol {tol:.4e}, max "
+          f"|logit| {top:.4f}), by position "
+          f"{[round(e, 4) for e in by_pos]}, argmax agreement {agree}",
+          flush=True)
+    if not finite or err > tol:
+        raise AssertionError(f"phase n {tag}: prefill + decode misses the "
+                             f"full forward ({err} > {tol})")
+    del full, inc, caches, enc
+
+
+def _frontend_forward(tag: str, cfg, params, dev) -> None:
+    """``model_fwd`` with the stub features: DeepSeek's MTP head, a vision
+    model's patches (batch 1), the encoder-decoder's frames; finite
+    outputs of the expected shapes."""
+    import torch
+    from repro_torch.models import model_fwd, padded_vocab
+    B, T = (1, 32) if cfg.frontend == "vision" else (4, 32)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, size=(B, T))).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out = model_fwd(params, {"tokens": toks,
+                                 **_features(cfg, B, dev)}, cfg=cfg)
+    torch.cuda.synchronize()
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    finite = all(bool(torch.isfinite(v).all()) for v in out.values())
+    print(f"[n] {tag}: model_fwd with "
+          f"{sorted(_features(cfg, B, dev)) or 'tokens only'} "
+          f"({time.perf_counter() - t0:.2f} s): {shapes} "
+          f"({', '.join(f'{k} {v.dtype}' for k, v in out.items())}), "
+          f"finite {finite}", flush=True)
+    want = (B, T, padded_vocab(cfg))
+    if not finite or any(v != want for v in shapes.values()) or \
+            ("mtp_logits" in out) != cfg.mtp:
+        raise AssertionError(f"phase n {tag}: model_fwd gave {shapes}, "
+                             f"finite {finite}")
+    del out
+
+
+def _mamba_times(tag: str, cfg, params, dev) -> None:
+    """The Mamba mixer alone (its first layer) at the serving shapes:
+    the prefill's per-step float32 recurrence over 32 tokens, and one
+    decode step, beside the bytes bound of reading the layer's weights
+    and its state once."""
+    import torch
+    from repro_torch.models import ssm
+    i = next(j for j, sp in enumerate(cfg.block) if sp.mixer == "mamba")
+    p = {k: v[0] for k, v in params["blocks"][f"layer{i}"]["mixer"].items()}
+    B, P, _ = MIXER_SERVE
+    spec = ssm.mamba_cache_spec(cfg, B, p["w_in"].dtype)
+    cache = {k: torch.zeros(sh, dtype=dt, device=dev)
+             for k, (sh, dt) in spec.items()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    with torch.inference_mode():
+        for T in (P, 1):
+            x = torch.randn((B, T, cfg.d_model), generator=gen,
+                            device=dev).to(p["w_in"].dtype)
+            out[T] = time_ms(lambda: ssm.apply_mamba(p, x, cfg=cfg,
+                                                     cache=cache))
+    weights = sum(t.numel() * t.element_size() for t in p.values())
+    state = sum(t.numel() * t.element_size() for t in cache.values())
+    print(f"[n] {tag}: Mamba mixer (layer {i}, d_inner "
+          f"{p['w_in'].shape[1] // 2}, d_state {p['a_log'].shape[1]}): "
+          f"prefill {B} x {P} {out[P]:.3f} ms, decode {B} x 1 "
+          f"{out[1]:.3f} ms; reading its weights and state once "
+          f"{(weights + 2 * state) / HBM_BYTES_PER_S * 1e3:.3f} ms",
+          flush=True)
+
+
+def phase_n(dev, ds_seed: int) -> None:
+    """The remaining mixers at their published widths: per model, init,
+    the frontend forward, the decode gate, an uncoded serve and the head
+    probe; DeepSeek-V3 also served with a coded head."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_model, padded_vocab
+    t_phase = time.perf_counter()
+    for arch, cut, why in MIXER_MODELS:
+        fresh_card(dev, "n")
+        cfg = _cut(get_config(arch), cut)
+        seed = ds_seed if arch == DEEPSEEK else 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = init_model(seed, cfg, dev)
+        torch.cuda.synchronize()
+        serve._MODEL_CACHE[(arch, False, seed, str(dev))] = (cfg, params)
+        n_par = sum(t.numel() for t in _leaves(params))
+        print(f"[n] {cfg.name}: d_model {cfg.d_model}, {cfg.n_layers} "
+              f"layers ({why}), {cfg.dtype}, {n_par:.4e} parameters, seed "
+              f"{seed}; init {time.perf_counter() - t0:.1f} s, peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
+              flush=True)
+        if cfg.mtp or cfg.frontend is not None:
+            _frontend_forward(cfg.name, cfg, params, dev)
+        _decode_gate(cfg.name, cfg, params, dev)
+        if cfg.mamba is not None:
+            _mamba_times(cfg.name, cfg, params, dev)
+        B, P, G = MIXER_SERVE
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab, size=(B, P))).to(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        serve.generate(cfg, params, prompts, 2)              # warm-up
+        toks, t_pre, t_dec = serve.generate(cfg, params, prompts, G)
+        # greedy over the padded head, as the reference's loop: a random
+        # model may pick a padding row
+        if toks.shape != (B, G) or (toks < 0).any() or \
+                (toks >= padded_vocab(cfg)).any():
+            raise AssertionError(f"phase n {cfg.name}: bad tokens {toks}")
+        print(f"[n] {cfg.name}: uncoded serve {B} x prompt {P} x gen {G}: "
+              f"prefill {B * P / t_pre:.1f} tok/s ({t_pre * 1e3:.1f} ms), "
+              f"decode {B * (G - 1) / t_dec:.1f} tok/s ({t_dec * 1e3:.1f} "
+              f"ms), peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
+              f" GiB", flush=True)
+        if arch == DEEPSEEK:
+            rep = _coded_head(dev, seed, torch.float64, arch=arch,
+                              phase="n", twin=True)
+            if not rep.decode_ok or rep.argmax_match_rate != 1.0:
+                raise AssertionError(
+                    f"phase n: the {arch} coded head misses the 5e-4 head "
+                    f"tolerance or the uncoded argmax (max_err "
+                    f"{rep.max_err:.3e}, argmax match "
+                    f"{rep.argmax_match_rate})")
+        elif cfg.enc_dec:
+            print(f"[n] {cfg.name}: no head probe (the coded bridge serves "
+                  f"decoder-only archs, as the reference's)", flush=True)
+        else:
+            s = max(plan_probe(cfg, 0, scope="head")["head"])
+            print(f"[n] {cfg.name}: head probe, seed 0: {s} parity rows of "
+                  f"L {padded_vocab(cfg)}"
+                  + ("" if cfg.name.startswith("gemma3") else
+                     f", float64 minor {8 * s * s / 2**30:.2f} GiB"),
+                  flush=True)
+        del params
+        serve._MODEL_CACHE.clear()
+    fresh_card(dev, "n")
+    print(f"[n] total {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def phase_f(dev) -> None:
     """Coded serving at smoke size through serve_policy_sweep."""
     from repro_torch import kernels
@@ -1975,7 +2415,10 @@ def main() -> int:
         regs = [ln.strip() for ln in log if "registers" in ln]
         print(f"[b] {name}: {regs[:3]}", flush=True)
 
-    rows = phase_c(dev)
+    # phase n's coded DeepSeek seed, from the weightless probe (CPU, ~1 s);
+    # phase c holds the parity kernels at its solve
+    ds_seed, ds_s = deepseek_coded_seed()
+    rows = phase_c(dev, ds_s)
     phase_d(dev)
     kernels.reset_launch_counts()
     phase_e(dev)
@@ -1986,6 +2429,7 @@ def main() -> int:
     phase_k(dev)
     phase_l(dev)
     phase_m(dev)
+    phase_n(dev, ds_seed)
     launches = kernels.launch_counts()
     for name, n in launches.items():
         if n <= 0:
@@ -1996,7 +2440,8 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "queued_ms", "library_queued_ms", "graph_ms",
             "library_parity_ms", "two_pass_ms", "batched", "float32",
-            "verify", "decode_chunk", "trunk", "launch_floor",
+            "verify", "decode_chunk", "trunk", "deepseek_head",
+            "deepseek_chunk", "launch_floor",
             "serving_prefill_bfloat16", "serving_prefill_float32",
             "decode_bfloat16", "decode_float32", "long_prefill_float32")
     print(json.dumps({"kernels": [{k: rows[n][k] for k in keys

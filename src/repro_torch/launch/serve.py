@@ -5,8 +5,11 @@
         --requests 16 --prompt-len 32 --gen-len 24
 
 Runs a small request pool through prefill → token-by-token decode with a
-shared decode step, reporting throughput.  ``--arch rwkv6-7b`` serves the
-RWKV-6 stack (its WKV through the hand-written kernel).  With ``--coded``
+shared decode step, reporting throughput.  ``--arch`` takes every
+config of :mod:`repro_torch.configs` (``deepseek-v3-671b``,
+``jamba-1.5-large-398b``, ``rwkv6-7b``, ...; smoke-sized); an
+encoder-decoder is fed constant encoder features, as the reference's
+launcher feeds them.  With ``--coded``
 the same model is served through the coded-computation bridge
 (:mod:`repro_torch.serve_coded`): the output-head matmul of every token
 batch (``--coding-scope ffn|trunk``: also the FFN / every trunk
@@ -84,6 +87,8 @@ def zero_caches(cfg, batch: int, max_len: int, device=None):
     def make(tree):
         if isinstance(tree, dict):
             return {k: make(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [make(v) for v in tree]
         shape, dtype = tree
         return torch.zeros(shape, dtype=dtype, device=dev)
 
@@ -173,9 +178,18 @@ def main(argv=None) -> int:
 def generate(cfg, params, prompts: torch.Tensor, gen_len: int):
     """Greedy uncoded generation: one batched prefill, then ``gen_len - 1``
     decode steps.  Returns ``(tokens (B, gen_len) numpy, prefill seconds,
-    decode seconds)``, each time fenced with the device."""
+    decode seconds)``, each time fenced with the device.
+
+    An encoder-decoder's prefill gets constant encoder features (0.1,
+    float32), and its decode steps no encoder output, as the reference's
+    launcher runs them."""
     dev = prompts.device
     B, P = prompts.shape
+    batch = {"tokens": prompts}
+    if cfg.enc_dec:
+        batch["enc_feats"] = torch.full(
+            (B, cfg.frontend_len, cfg.frontend_dim), 0.1,
+            dtype=torch.float32, device=dev)
     caches = zero_caches(cfg, B, P + gen_len + 8, device=dev)
     prefill_fn, decode_fn = serving_fns(cfg)
 
@@ -185,7 +199,7 @@ def generate(cfg, params, prompts: torch.Tensor, gen_len: int):
 
     fence()
     t0 = time.perf_counter()
-    logits, caches = prefill_fn(params, {"tokens": prompts}, caches)
+    logits, caches = prefill_fn(params, batch, caches)
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
     fence()
     t_prefill = time.perf_counter() - t0

@@ -11,7 +11,8 @@ import torch.nn.functional as F
 from .config import ArchConfig
 
 __all__ = ["rms_norm", "init_rms", "init_ffn", "apply_ffn",
-           "ffn_weight_names", "init_embedding", "embed", "logits"]
+           "ffn_weight_names", "init_embedding", "embed", "logits",
+           "promote", "einsum"]
 
 
 def ffn_weight_names(act: str) -> tuple:
@@ -28,6 +29,21 @@ def _normal(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
     draws in the parameter dtype; values differ anyway across frameworks)."""
     return torch.randn(shape, generator=gen, dtype=torch.float32,
                        device=device).to(dtype)
+
+
+def promote(*ts):
+    """The operands in their common dtype, as ``jnp``'s products promote:
+    a float32 activation (an encoder's or a frontend's, from float32
+    features) against bfloat16 weights computes in float32."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return [t.to(dt) for t in ts]
+
+
+def einsum(eq: str, *ts) -> torch.Tensor:
+    """``torch.einsum`` with ``jnp.einsum``'s dtype promotion."""
+    return torch.einsum(eq, *promote(*ts))
 
 
 def init_rms(d: int, dtype, device=None) -> torch.Tensor:
@@ -51,9 +67,9 @@ def init_ffn(gen: torch.Generator, d: int, d_ff: int, act: str, dtype,
 
 
 def apply_ffn(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
-    h = x @ params["w_in"]
+    h = einsum("btd,df->btf", x, params["w_in"])
     if act == "swiglu":
-        h = F.silu(x @ params["w_gate"]) * h
+        h = F.silu(einsum("btd,df->btf", x, params["w_gate"])) * h
     elif act == "gelu":
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(h, approximate="tanh")
@@ -61,7 +77,7 @@ def apply_ffn(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
         h = F.relu(h).square()
     else:
         raise ValueError(act)
-    return h @ params["w_out"]
+    return einsum("btf,fd->btd", h, params["w_out"])
 
 
 def init_embedding(gen: torch.Generator, cfg: ArchConfig, dtype,
@@ -79,5 +95,5 @@ def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 def logits(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return x @ params["tok"].T
-    return x @ params["out"]
+        return einsum("btd,vd->btv", x, params["tok"])
+    return einsum("btd,dv->btv", x, params["out"])

@@ -562,6 +562,10 @@ class CodedServingBridge:
             from ..launch.serve import build_model, head_matrix, serving_fns
             cfg, params = build_model(self.arch, smoke=self.smoke,
                                       seed=self.seed, device=self.device)
+            if cfg.enc_dec:
+                raise NotImplementedError("coded bridge serves decoder-only "
+                                          "archs (enc-dec prefill needs "
+                                          "feats)")
             W = head_matrix(cfg, params)
             self._model = dict(cfg=cfg, params=params, W=W)
             self.sc = self.profile.scenario(self.M, L=float(W.shape[0]))
@@ -608,6 +612,9 @@ class CodedServingBridge:
         if isinstance(big, dict):
             return {k: CodedServingBridge._write_slot(big[k], one[k], slot)
                     for k in big}
+        if isinstance(big, list):        # the prefix layers' caches
+            return [CodedServingBridge._write_slot(b, o, slot)
+                    for b, o in zip(big, one)]
         ax = next((i for i, (bs, os_) in
                    enumerate(zip(big.shape, one.shape)) if bs != os_), None)
         if ax is None:
