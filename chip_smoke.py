@@ -75,17 +75,30 @@ exits non-zero):
      that wraps them), dbrx-132b (MoE; 4 layers), internvl2-26b (vision
      frontend) and seamless-m4t-large-v2 (encoder-decoder): init, the
      frontend forward (``mtp_logits``, patches, frames), prefill + decode
-     against the full forward at phase j's gate (MoE uncapped), an
-     uncoded serve 4 x 32 x 16, and the head probe's parity rows; then
+     against the full forward at phase j's gate (MoE uncapped), for the
+     MoE models two same-seed full forwards bit-equal, an uncoded serve
+     4 x 32 x 16, and the head probe's parity rows; then
      deepseek-v3-671b served with a coded head (virtual parity, the first
      seed of 0-7 whose frozen head solve's float64 minor is under 30
      GiB), gated at the 5e-4 head tolerance, argmax 1.0 and tokens equal
      to its uncoded twin's;
+  o. llama3.2-1b trained at its published widths and depth (bf16,
+     AdamW, remat, 2 microbatches of 4 x 128 tokens): 6 steps with a
+     checkpoint every 3 (step ms, tokens/s, peak memory, each save's and
+     the restore's bytes and seconds), gated on the loss falling; the
+     step-6 checkpoint dropped and a fresh loop resumed from step 3,
+     gated on every param and moment leaf equal to the straight run's
+     bit for bit; 2 Adafactor steps (finite loss, peak beside AdamW's);
+     the WKV kernel's refusal to run under autograd; the coded gradient
+     aggregation (4 groups of 2 rows, 6 shards encoded by the
+     ``mds_encode`` kernel's float32 route, 4 arrived) gated against the
+     plain float32 sum, its int8 variant printed;
   i. one JSON line with every kernel's numbers and its launches on the
-     main path (phases e to n, counts reset just before e), then the
-     result line.
+     main path (phases e to o, counts reset just before e; ``mds_encode``
+     also timed at phase o's coded-gradient shape, row 5g, after the
+     counts are read), then the result line.
 
-Phases j to n start from a clean card (every model and bridge released)
+Phases j to o start from a clean card (every model and bridge released)
 and print the memory still allocated.
 
 Exits non-zero without a result when no CUDA device is visible, or when
@@ -210,6 +223,27 @@ MINOR_LIMIT_GIB = 30.0
 WKV_H, WKV_K = 64, 64
 WKV_SHAPES = {"serving prefill": (4, 32), "decode": (4, 1),
               "long prefill": (1, 4096)}
+
+#: phase o: llama3.2-1b trained at its published widths and depth (bf16),
+#: on the launcher's default stream and the loop of the coded-training
+#: example, a checkpoint every 3 steps.  The peak lr is 1e-4, not the
+#: launcher's smoke-size 3e-3: with 1 024 tokens a step and a 5-step
+#: warmup, Adam's first updates move every weight by about the lr, and at
+#: 3e-3 or 3e-4 the full-width loss rises again after the first update,
+#: in float32 as in bf16 (``tools/train_lr_probe.py`` prints each curve)
+TRAIN_STREAM = dict(seq_len=128, global_batch=8, seed=0)
+TRAIN_LOOP = dict(total_steps=6, ckpt_every=3, n_microbatches=2,
+                  lr_peak=1e-4, warmup=5, keep=2, log_every=1)
+ADAFACTOR_STEPS = 2
+#: phase o's coded gradient aggregation (examples/coded_training.py): k
+#: groups of the step's rows, n coded shards, the shards that arrive
+GRAD_K, GRAD_N, GRAD_ARRIVED, GRAD_RNG = 4, 6, (0, 2, 4, 5), 1
+#: the aggregate against the plain float32 sum of the k trees, per leaf,
+#: relative to the leaf's largest entry: the arrived rows combined by the
+#: weights of a float32 4 x 4 solve with [e0; e2; R0; R1] (1.8e-7 on the
+#: CPU test's trees, tests/test_torch_train.py::
+#: test_coded_grads_match_reference)
+GRAD_TOL = 1e-5
 
 
 def card_line() -> str:
@@ -2182,6 +2216,8 @@ def phase_n(dev, ds_seed: int) -> None:
         if cfg.mtp or cfg.frontend is not None:
             _frontend_forward(cfg.name, cfg, params, dev)
         _decode_gate(cfg.name, cfg, params, dev)
+        if cfg.moe is not None:
+            _moe_repeat_gate(cfg.name, cfg, params, dev)
         if cfg.mamba is not None:
             _mamba_times(cfg.name, cfg, params, dev)
         B, P, G = MIXER_SERVE
@@ -2223,6 +2259,313 @@ def phase_n(dev, ds_seed: int) -> None:
         serve._MODEL_CACHE.clear()
     fresh_card(dev, "n")
     print(f"[n] total {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _moe_repeat_gate(tag: str, cfg, params, dev) -> None:
+    """Two same-seed full forwards of a MoE model give the same logits,
+    bit for bit: the expert combine sums in a fixed order (an unordered
+    ``index_add_`` on the card did not)."""
+    import torch
+    from repro_torch.models import model_fwd
+    B, P, S = MIXER_GATE_DEFAULT
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, size=(B, P + S))).to(dev)
+    with torch.inference_mode():
+        a = model_fwd(params, {"tokens": toks}, cfg=cfg)["logits"]
+        b = model_fwd(params, {"tokens": toks}, cfg=cfg)["logits"]
+    same = torch.equal(a, b)
+    print(f"[n] {tag}: two full forwards of {B} x {P + S} tokens, logits "
+          f"bit-equal: {same} (max |d| {max_err(a, b):.3e})", flush=True)
+    if not same:
+        raise AssertionError(f"phase n {tag}: the MoE forward is not "
+                             f"repeatable")
+    del a, b
+
+
+def _ckpt_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).iterdir())
+
+
+class _TimedSaves:
+    """Wraps a ``TrainLoop``'s ``save``: the (step, bytes, seconds) of each
+    checkpoint, and the host time each step's timing should not count."""
+
+    def __init__(self, loop):
+        self.loop, self.save, self.saves = loop, loop.save, []
+        loop.save = self
+
+    def __call__(self):
+        t0 = time.perf_counter()
+        self.save()
+        dt = time.perf_counter() - t0
+        step = self.loop.step
+        self.saves.append((step, _ckpt_bytes(
+            Path(self.loop.ckpt.dir) / f"step_{step:08d}"), dt))
+
+
+def _timed_run(loop) -> tuple:
+    """``loop.run()`` with each step's wall time (the loop logs every
+    step, which reads the loss, so a step ends on the device) less the
+    saves that ran before it, and each save's bytes and seconds."""
+    marks, saves = [], _TimedSaves(loop)
+    t0 = time.perf_counter()
+    hist = loop.run(callback=lambda s, m: marks.append(
+        (s, time.perf_counter(), sum(d for _, _, d in saves.saves))))
+    step_ms, last, saved = {}, t0, 0.0
+    for s, t, sv in marks:
+        step_ms[s] = (t - last - (sv - saved)) * 1e3
+        last, saved = t, sv
+    return hist, step_ms, saves.saves
+
+
+def phase_o(dev) -> dict:
+    """llama3.2-1b trained at its published widths and depth: a straight
+    run with checkpoints, a preempted run resumed from one, Adafactor, and
+    the coded gradient aggregation through the ``mds_encode`` kernel.
+    Returns what ``coded_grads_row`` times (the group gradient trees and
+    the generator)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import wkv6 as wkv6_mod
+    from repro_torch.models import init_model
+    from repro_torch.optim import adafactor_init
+    from repro_torch.runtime.train_loop import (TrainLoop, TrainLoopConfig,
+                                                make_train_step)
+    fresh_card(dev, "o")
+    t_phase = time.perf_counter()
+    cfg = get_config(ARCH)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    free = shutil.disk_usage(ckpt_dir).free
+    stream = TokenStream(vocab=cfg.vocab, **TRAIN_STREAM)
+    tokens = TRAIN_STREAM["seq_len"] * TRAIN_STREAM["global_batch"]
+    try:
+        # -- 1. the straight run ------------------------------------------
+        loop_cfg = TrainLoopConfig(ckpt_dir=ckpt_dir, **TRAIN_LOOP)
+        torch.cuda.reset_peak_memory_stats(dev)
+        straight = TrainLoop(cfg, loop_cfg, stream, rng_seed=0, device=dev)
+        n_par = sum(t.numel() for t in _tree.leaves(straight.params))
+        print(f"[o] {cfg.name}: d_model {cfg.d_model}, {cfg.n_layers} "
+              f"layers (not cut), vocab {cfg.vocab}, {cfg.dtype}, "
+              f"{n_par} parameters; stream {TRAIN_STREAM}, loop "
+              f"{TRAIN_LOOP}, AdamW, remat 'full'; checkpoint dir free "
+              f"{free / 2**30:.1f} GiB", flush=True)
+        hist, step_ms, saves = _timed_run(straight)
+        peak_adamw = torch.cuda.max_memory_allocated(dev) / 2**30
+        losses = [m["loss"] for _, m in hist]
+        steady = sorted(step_ms[s] for s in range(2, TRAIN_LOOP[
+            "total_steps"] + 1))
+        med = steady[len(steady) // 2]
+        print(f"[o] straight run: loss by step "
+              f"{[round(x, 4) for x in losses]}; step ms "
+              f"{ {s: round(v, 1) for s, v in step_ms.items()} }, median "
+              f"of steps 2-6 {med:.1f} ms, {tokens / med * 1e3:.0f} "
+              f"training tokens/s; peak {peak_adamw:.2f} GiB", flush=True)
+        for step, nb, dt in saves:
+            print(f"[o] save step {step}: {nb / 1e9:.3f} GB in {dt:.2f} s "
+                  f"({nb / dt / 1e9:.2f} GB/s)", flush=True)
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"phase o: the loss did not fall over "
+                                 f"{len(losses)} steps: {losses}")
+
+        # -- 2. preempted before step 6's save, resumed from step 3 -------
+        last = TRAIN_LOOP["total_steps"]
+        shutil.rmtree(Path(ckpt_dir) / f"step_{last:08d}")
+        resumed = TrainLoop(cfg, loop_cfg, stream, rng_seed=1, device=dev)
+        t0 = time.perf_counter()
+        if not resumed.try_restore():
+            raise AssertionError("phase o: no checkpoint to restore")
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        nb = _ckpt_bytes(Path(ckpt_dir) / f"step_{resumed.step:08d}")
+        print(f"[o] restore step {resumed.step}: {nb / 1e9:.3f} GB in "
+              f"{t_restore:.2f} s ({nb / t_restore / 1e9:.2f} GB/s)",
+              flush=True)
+        if resumed.step != TRAIN_LOOP["ckpt_every"]:
+            raise AssertionError(f"phase o: restored step {resumed.step}")
+        r_hist, _, r_saves = _timed_run(resumed)
+        for step, nb, dt in r_saves:
+            print(f"[o] resumed run, save step {step}: {nb / 1e9:.3f} GB in "
+                  f"{dt:.2f} s ({nb / dt / 1e9:.2f} GB/s)", flush=True)
+        a = _tree.leaves((straight.params, straight.opt_state))
+        b = _tree.leaves((resumed.params, resumed.opt_state))
+        differ = [i for i, (x, y) in enumerate(zip(a, b))
+                  if x.dtype != y.dtype or not torch.equal(x, y)]
+        print(f"[o] resumed at step 3 (seed 1 before the restore), ran to "
+              f"step {resumed.step}: loss by step "
+              f"{[round(m['loss'], 4) for _, m in r_hist]}; {len(a)} "
+              f"param and moment leaves, {len(differ)} differ from the "
+              f"straight run's", flush=True)
+        if differ or len(a) != len(b):
+            raise AssertionError(f"phase o: the resumed run differs from "
+                                 f"the straight run at leaves {differ}")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del straight, resumed, a, b
+    fresh_card(dev, "o")
+
+    # -- 3. Adafactor -------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_model(0, cfg, dev)
+    opt = adafactor_init(params)
+    step = make_train_step(cfg, optimizer="adafactor",
+                           n_microbatches=TRAIN_LOOP["n_microbatches"],
+                           lr_peak=TRAIN_LOOP["lr_peak"],
+                           warmup=TRAIN_LOOP["warmup"],
+                           total_steps=TRAIN_LOOP["total_steps"])
+    ada = []
+    for s in range(ADAFACTOR_STEPS):
+        params, opt, m = step(params, opt, _card_batch(stream, s, dev))
+        ada.append(float(m["loss"]))
+    print(f"[o] Adafactor, {ADAFACTOR_STEPS} steps: loss "
+          f"{[round(x, 4) for x in ada]}; peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB (AdamW "
+          f"{peak_adamw:.2f} GiB)", flush=True)
+    if not np.isfinite(ada).all():
+        raise AssertionError(f"phase o: Adafactor's loss {ada}")
+    del params, opt, step
+
+    # -- the card refuses to train through the WKV kernel --------------------
+    x = torch.zeros((2, 4, 64), device=dev, requires_grad=True)
+    try:
+        wkv6_mod.wkv6_dev(x, x, x, x, torch.zeros((2, 64), device=dev))
+    except RuntimeError as e:
+        print(f"[o] wkv6 on the card with a gradient required refuses: "
+              f"{e}", flush=True)
+    else:
+        raise AssertionError("phase o: wkv6 ran on the card under autograd")
+    del x
+
+    state = _coded_grads(dev, cfg, stream)
+    print(f"[o] phase o {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return state
+
+
+def _coded_grads(dev, cfg, stream) -> dict:
+    """Phase o's coded gradient aggregation: k group gradients of one
+    step's batch encoded into n shards by the ``mds_encode`` kernel, the
+    sum rebuilt from the arrived ones, against the plain float32 sum."""
+    import torch
+    from repro_torch import _tree, kernels
+    from repro_torch.models import init_model
+    from repro_torch.runtime import coded_grads
+    from repro_torch.runtime.train_loop import value_and_grad
+    fresh_card(dev, "o")
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_model(0, cfg, dev)
+    batch = _card_batch(stream, 0, dev)
+    rows = TRAIN_STREAM["global_batch"] // GRAD_K
+    trees = [value_and_grad(params, {k: v[i * rows:(i + 1) * rows]
+                                     for k, v in batch.items()}, cfg=cfg)[1]
+             for i in range(GRAD_K)]
+    del params
+    D = sum(t.numel() for t in _tree.leaves(trees[0]))
+    print(f"[o] coded gradients: {GRAD_K} groups of {rows} rows, D = {D}; "
+          f"reckoned peak: X {GRAD_K * D * 4 / 1e9:.1f} GB + coded "
+          f"{GRAD_N * D * 4 / 1e9:.1f} GB + the bf16 group trees "
+          f"{GRAD_K * D * 2 / 1e9:.1f} GB + the float32 plain sum "
+          f"{D * 4 / 1e9:.1f} GB + the aggregate {D * 4 / 1e9:.1f} GB; a "
+          f"whole-matrix gather + solve would add "
+          f"{2 * GRAD_K * D * 4 / 1e9:.1f} GB, so the solve runs in "
+          f"{-(-D // coded_grads.CHUNK_COLS)} column chunks", flush=True)
+    plain = _tree.map(lambda *g: sum(t.float() for t in g), *trees)
+    before = kernels.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coded, ctx = coded_grads.encode_grad_shards(trees, n_coded=GRAD_N,
+                                                rng=GRAD_RNG)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    grew = _launched(before, "o", ("mds_encode",))
+    errs = {}
+    for int8 in (False, True):
+        t0 = time.perf_counter()
+        agg = coded_grads.coded_grad_aggregate(coded, ctx, GRAD_ARRIVED,
+                                               compress_int8=int8)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        pairs = list(zip(_tree.leaves(agg), _tree.leaves(plain)))
+        errs[int8] = max(
+            float((x - y).abs().max() / y.abs().max().clamp(min=1e-30))
+            for x, y in pairs)
+        l2 = (sum(float((x - y).double().square().sum()) for x, y in pairs)
+              / sum(float(y.double().square().sum()) for _, y in pairs))
+        print(f"[o] aggregate from shards {list(GRAD_ARRIVED)} of {GRAD_N}"
+              f"{' (int8)' if int8 else ''}: {dt:.2f} s, max per-leaf "
+              f"error {errs[int8]:.3e} of the leaf's largest plain-sum "
+              f"entry, relative L2 error {l2 ** 0.5:.3e}", flush=True)
+        del agg, pairs
+    print(f"[o] encode {t_enc * 1e3:.1f} ms (host clock, with the flatten "
+          f"into X); launches {grew}; peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
+          flush=True)
+    if not errs[False] <= GRAD_TOL:
+        raise AssertionError(f"phase o: the coded aggregate misses the "
+                             f"plain sum ({errs[False]} > {GRAD_TOL})")
+    del coded, plain
+    torch.cuda.empty_cache()
+    return {"trees": trees, "G": ctx["G"]}
+
+
+def _card_batch(stream, step: int, dev) -> dict:
+    """The stream's batch of ``step`` on the card (int32)."""
+    import torch
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in stream.batch(step).items()}
+
+
+def coded_grads_row(dev, state: dict) -> dict:
+    """Row 5g: the ``mds_encode`` kernel (float32 route) at the
+    coded-gradient shape, (n x k) @ (k x D), against its plain version,
+    timed single and queued beside the library call of the same work and
+    the parity rows alone, and the byte bound."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.runtime import coded_grads
+    X = coded_grads.flatten_grads(state.pop("trees"))[0]
+    G = state["G"]
+    k, D = X.shape
+    n = G.shape[0]
+    torch.cuda.empty_cache()
+    got = ops.mds_encode(G, X)
+    if not torch.equal(got[:k], X):
+        raise AssertionError("coded gradients: the systematic rows are not "
+                             "X bit for bit")
+    err, top = 0.0, 0.0
+    for c0 in range(0, D, coded_grads.CHUNK_COLS):
+        cols = slice(c0, c0 + coded_grads.CHUNK_COLS)
+        want = ref.mds_encode_ref(G[k:], X[:, cols])
+        err = max(err, max_err(got[k:, cols], want))
+        top = max(top, float(want.abs().max()))
+    tol = 1e-6 * (1 + top)
+    del got, want
+    ms = time_ms(lambda: ops.mds_encode(G, X), 3)
+    q_ms = time_queued_ms(lambda: ops.mds_encode(G, X), 5)
+    torch.cuda.empty_cache()
+    plain_ms = time_ms(lambda: torch.cat(
+        [X, ref.mds_encode_ref(G[k:], X)]), 3)
+    lib_ms = time_ms(lambda: torch.cat([X, G[k:] @ X]), 3)
+    par_ms = time_ms(lambda: G[k:] @ X, 3)
+    torch.cuda.empty_cache()
+    bnd = bound(4.0 * (k + n) * D, [2.0 * (n - k) * k * D / F32_FLOP_PER_S])
+    print_plan("mds_encode float32 coded-gradient shape", "f32", n - k, D, k)
+    print(f"[o] row 5g, mds_encode float32 at the coded-gradient shape "
+          f"({n} x {k}) @ ({k} x {D}): max_abs_err={err:.3e} (tol "
+          f"{tol:.3e}) kernel {ms:.3f} ms, queued {q_ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, library (cat + parity matmul) {lib_ms:.3f} "
+          f"ms, library on the parity rows {par_ms:.3f} ms, bound "
+          f"{bnd[0]:.3f} ms ({bnd[1]})", flush=True)
+    if err > tol:
+        raise AssertionError(f"mds_encode at the coded-gradient shape "
+                             f"disagrees ({err} > {tol})")
+    del X, state["G"]
+    torch.cuda.empty_cache()
+    return dict(k=k, n=n, D=D, ms=ms, queued_ms=q_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, library_parity_ms=par_ms,
+                bound_ms=bnd[0], bound_by=bnd[1], max_abs_err=err)
 
 
 def phase_f(dev) -> None:
@@ -2430,17 +2773,21 @@ def main() -> int:
     phase_l(dev)
     phase_m(dev)
     phase_n(dev, ds_seed)
+    grads = phase_o(dev)
     launches = kernels.launch_counts()
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"main path never launched {name}")
         rows[name]["launches"] = n
+    # row 5g times the encode after the counts are read: its launches
+    # compare the kernel, they are not the main path's
+    rows["mds_encode"]["coded_grads"] = coded_grads_row(dev, grads)
     print(f"[i] total {time.perf_counter() - t_start:.1f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "queued_ms", "library_queued_ms", "graph_ms",
             "library_parity_ms", "two_pass_ms", "batched", "float32",
-            "verify", "decode_chunk", "trunk", "deepseek_head",
+            "verify", "coded_grads", "decode_chunk", "trunk", "deepseek_head",
             "deepseek_chunk", "launch_floor",
             "serving_prefill_bfloat16", "serving_prefill_float32",
             "decode_bfloat16", "decode_float32", "long_prefill_float32")

@@ -106,8 +106,20 @@ def wkv6_dev(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """WKV6 over (BH, T, ·) rows with u (H, K): the kernel for CUDA
     tensors, the plain chunked version (``chunk`` steps per chunk) for CPU
-    tensors.  Returns (out, final state) as :func:`wkv6_cuda` does."""
+    tensors.  Returns (out, final state) as :func:`wkv6_cuda` does.
+
+    The kernel has no backward: on the card a call that autograd would
+    record (grad mode on and an input that requires grad) raises rather
+    than return an output that drops its gradient.  The plain version is
+    differentiable."""
     if r.device.type != "cpu":
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad
+                for t in (r, k, v, w, u, state)):
+            raise RuntimeError(
+                "wkv6: the CUDA kernel has no backward, so it cannot train "
+                "(run it under torch.no_grad() or inference_mode, or train "
+                "RWKV on the CPU)")
         return wkv6_cuda(r, k, v, w, u, state)
     BH, T, K = r.shape
     H, V = u.shape[0], v.shape[-1]

@@ -9,7 +9,8 @@ projections of precomputed features, as in the reference: an audio
 encoder-decoder takes ``enc_feats``, a vision model prepends projected
 ``patch_feats`` in ``model_fwd`` (the reference's ``prefill`` has no
 vision branch, so serving is text-only).  DeepSeek's MTP head adds
-``mtp_logits`` to the full forward.
+``mtp_logits`` to the full forward.  ``ModelCtx`` carries the training
+forward's activation-checkpointing policy.
 
 Three entry points, as in the reference:
   * ``model_fwd``    — full-sequence forward
@@ -26,9 +27,11 @@ seeded ``torch.Generator`` with the reference's shapes, dtypes and scales
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from . import attention as attn
 from . import layers as ly
@@ -39,7 +42,22 @@ from .config import ArchConfig
 from ..device import resolve_device
 
 __all__ = ["init_model", "model_fwd", "prefill", "decode_step",
-           "init_cache_shapes", "padded_vocab", "torch_dtype"]
+           "init_cache_shapes", "padded_vocab", "torch_dtype", "ModelCtx"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelCtx:
+    """Context threaded through the forward (the reference's, without the
+    mesh fields, which arrive with the port's parallelism).
+
+    ``remat_policy`` says what a training forward keeps of each repeat of
+    the block for the backward: ``"full"`` recomputes the whole repeat
+    (the reference's ``jax.checkpoint``), ``"dots"`` keeps the matmul
+    outputs and recomputes the rest (its ``dots_with_no_batch_dims``
+    policy), ``"none"`` keeps everything (no recomputation; the port's
+    own option).  Remat applies only where autograd records and there
+    are no caches; the gradients are the same under every policy."""
+    remat_policy: str = "full"   # "full" | "dots" | "none"
 
 
 def padded_vocab(cfg: ArchConfig, mult: int = 512) -> int:
@@ -188,9 +206,37 @@ def _store(cache: Optional[dict], new_mc: Optional[dict]) -> None:
             mc[k].copy_(v)
 
 
+#: the ops whose outputs the "dots" policy keeps
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+
+def _dots_saveable(_sac_ctx, op, *args, **kwargs):
+    return _ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, x, policy: str):
+    """``fn(x)`` under activation checkpointing with ``policy``."""
+    if policy == "full":
+        return _ckpt.checkpoint(fn, x, use_reentrant=False)
+    if policy == "dots":
+        return _ckpt.checkpoint(
+            fn, x, use_reentrant=False,
+            context_fn=functools.partial(
+                _ckpt.create_selective_checkpoint_contexts, _dots_saveable))
+    raise ValueError(f"unknown remat_policy {policy!r}")
+
+
 def _run_blocks(blocks, x, *, cfg: ArchConfig, specs, n_repeats: int,
-                positions=None, caches=None, enc_out=None):
-    for r in range(n_repeats):
+                positions=None, caches=None, enc_out=None,
+                ctx: ModelCtx = ModelCtx()):
+    """The ``n_repeats`` repeats of ``specs``.  A training forward (grad
+    mode on, no caches) runs each repeat under ``ctx.remat_policy``."""
+    remat = caches is None and torch.is_grad_enabled() \
+        and ctx.remat_policy != "none"
+
+    def repeat(x, r):
         for i, spec in enumerate(specs):
             name = f"layer{i}"
             c = _at(caches[name], r) if caches is not None else None
@@ -199,11 +245,16 @@ def _run_blocks(blocks, x, *, cfg: ArchConfig, specs, n_repeats: int,
                                      cache=c, enc_out=enc_out)
             if c is not None:
                 _store(c, new_mc)
+        return x
+
+    for r in range(n_repeats):
+        x = _remat(functools.partial(repeat, r=r), x, ctx.remat_policy) \
+            if remat else repeat(x, r)
     return x
 
 
 def _trunk(params, x, *, cfg: ArchConfig, positions, caches=None,
-           enc_out=None):
+           enc_out=None, ctx: ModelCtx = ModelCtx()):
     """The prefix layers, the repeated blocks, the final norm.  Every
     cache leaf updates in place."""
     if cfg.prefix:
@@ -218,7 +269,7 @@ def _trunk(params, x, *, cfg: ArchConfig, positions, caches=None,
     x = _run_blocks(params["blocks"], x, cfg=cfg, specs=cfg.block,
                     n_repeats=cfg.n_repeats, positions=positions,
                     caches=caches.get("blocks") if caches else None,
-                    enc_out=enc_out)
+                    enc_out=enc_out, ctx=ctx)
     return ly.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -231,10 +282,11 @@ def _head(params, x, cfg: ArchConfig):
 # Forward passes
 # ---------------------------------------------------------------------------
 
-def _encoder(params, feats, *, cfg: ArchConfig):
+def _encoder(params, feats, *, cfg: ArchConfig,
+             ctx: ModelCtx = ModelCtx()):
     x = ly.einsum("btf,fd->btd", feats, params["frontend"]["proj"])
     x = _run_blocks(params["enc_blocks"], x, cfg=cfg, specs=cfg.enc_block,
-                    n_repeats=cfg.n_enc_repeats)
+                    n_repeats=cfg.n_enc_repeats, ctx=ctx)
     return ly.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -243,7 +295,8 @@ def _positions(B: int, T: int, device) -> torch.Tensor:
 
 
 def model_fwd(params, batch: Dict[str, torch.Tensor], *,
-              cfg: ArchConfig) -> Dict[str, torch.Tensor]:
+              cfg: ArchConfig, ctx: ModelCtx = ModelCtx()
+              ) -> Dict[str, torch.Tensor]:
     """Full-sequence forward.  Returns {"logits", optional "mtp_logits"}.
 
     batch: tokens (B, T); audio/enc feats (B, Ts, F) for enc-dec; patch
@@ -254,7 +307,7 @@ def model_fwd(params, batch: Dict[str, torch.Tensor], *,
     enc_out = None
     n_prefix_tokens = 0
     if cfg.enc_dec:
-        enc_out = _encoder(params, batch["enc_feats"], cfg=cfg)
+        enc_out = _encoder(params, batch["enc_feats"], cfg=cfg, ctx=ctx)
     elif cfg.frontend == "vision":
         pre = ly.einsum("bpf,fd->bpd", batch["patch_feats"],
                         params["frontend"]["proj"])
@@ -262,7 +315,7 @@ def model_fwd(params, batch: Dict[str, torch.Tensor], *,
         x = torch.cat(ly.promote(pre, x), dim=1)
     x = _trunk(params, x, cfg=cfg,
                positions=_positions(B, x.shape[1], tokens.device),
-               enc_out=enc_out)
+               enc_out=enc_out, ctx=ctx)
     if n_prefix_tokens:
         x = x[:, n_prefix_tokens:]
     out = {"logits": _head(params, x, cfg)}

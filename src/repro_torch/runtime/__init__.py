@@ -1,9 +1,10 @@
-"""repro_torch.runtime — the paper's static coded executor on the card.
-
-Only :class:`CodedExecutor` / :class:`ExecutionReport` are ported; the
-training runtime (``coded_grads``, ``straggler``, ``train_loop``) belongs to
-a later slice.
-"""
+"""repro_torch.runtime — coded execution, coded gradient aggregation,
+straggler baselines and the training loop, on the card."""
 from .coded_exec import CodedExecutor, ExecutionReport  # noqa: F401
+from .coded_grads import coded_grad_aggregate, encode_grad_shards  # noqa: F401
+from .straggler import BackupTaskPolicy, DeadlinePolicy  # noqa: F401
+from .train_loop import TrainLoop, TrainLoopConfig  # noqa: F401
 
-__all__ = ["CodedExecutor", "ExecutionReport"]
+__all__ = ["CodedExecutor", "ExecutionReport", "coded_grad_aggregate",
+           "encode_grad_shards", "BackupTaskPolicy", "DeadlinePolicy",
+           "TrainLoop", "TrainLoopConfig"]

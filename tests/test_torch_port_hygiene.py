@@ -15,7 +15,8 @@ COPIED = sorted(
     [f"core/{p.name}" for p in (REF / "core").glob("*.py")]
     + ["sim/cluster.py", "parallel/hetero.py", "faults/__init__.py",
        "serve_coded/requests.py", "serve_coded/plan_cache.py",
-       "models/config.py"]
+       "models/config.py", "data/__init__.py", "data/pipeline.py",
+       "runtime/straggler.py"]
     + [f"stream/{m}.py" for m in ("events", "metrics", "queueing",
                                    "barrier", "replan")]
     + [f"obs/{m}.py" for m in ("tracer", "export", "validate")])
@@ -77,9 +78,12 @@ def test_entry_points_default_to_cuda():
     from repro_torch.core import (large_scale_scenario, plan_from_assignment,
                                   simple_greedy)
     from repro_torch.configs import get_smoke_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import train
     from repro_torch.launch.serve import build_model
     from repro_torch.models import init_model
-    from repro_torch.runtime import CodedExecutor
+    from repro_torch.runtime import (CodedExecutor, TrainLoop,
+                                     TrainLoopConfig)
     from repro_torch.serve_coded import CodedServingBridge
     from repro_torch.stream import StreamingExecutor
     if torch.cuda.is_available():
@@ -98,5 +102,10 @@ def test_entry_points_default_to_cuda():
                       backend="torch")
     with pytest.raises(RuntimeError, match="cuda"):
         StreamingExecutor(sc)
+    cfg = get_smoke_config("llama3.2-1b")
+    with pytest.raises(RuntimeError, match="cuda"):
+        TrainLoop(cfg, TrainLoopConfig(), TokenStream(cfg.vocab, 8, 2))
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--steps", "1"])
     _, params = build_model("llama3.2-1b", smoke=True, seed=0, device="cpu")
     assert params["final_norm"].device.type == "cpu"
