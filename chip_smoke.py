@@ -20,7 +20,13 @@ exits non-zero):
      long-prefill shapes in bf16 and float32 (its launch plan printed,
      timed also from a CUDA graph beside a one-element kernel, 16 long
      prefills bit-equal; against the sequential oracle at strong decays
-     and below the 1e-12 clamp in both types; at edge shapes) -- with
+     and below the 1e-12 clamp in both types; at edge shapes; row 6t, the
+     forward at the train shape B 4 x T 128), and the WKV backward
+     (row 6g: against its plain version at the train and long shapes in
+     both types with random output and final-state cotangents, the plain
+     version against autograd of the chunked forward; against float64
+     autograd of the sequential recurrence at the strong decays, with S_0
+     and dS_T; at the edge shapes; 16 calls bit-equal; its plan) -- with
      its time (CUDA events, median), the plain version's time, a one-call
      PyTorch yardstick where one exists (for ``mds_encode`` also the same
      work: the parity rows alone), and the least time the card could take
@@ -89,16 +95,27 @@ exits non-zero):
      step-6 checkpoint dropped and a fresh loop resumed from step 3,
      gated on every param and moment leaf equal to the straight run's
      bit for bit; 2 Adafactor steps (finite loss, peak beside AdamW's);
-     the WKV kernel's refusal to run under autograd; the coded gradient
+     the coded gradient
      aggregation (4 groups of 2 rows, 6 shards encoded by the
      ``mds_encode`` kernel's float32 route, 4 arrived) gated against the
      plain float32 sum, its int8 variant printed;
+  p. rwkv6-7b trained at its published widths, cut to 8 of its 32
+     repeats (bf16, AdamW, remat, phase o's stream and microbatches):
+     the memory reckoning at phase o's peak per parameter; 6 steps (step
+     ms, tokens/s, peak memory, the WKV forward and backward launches
+     checked against 32 and 16 a step), gated on the loss falling; after
+     the launch counts are read (its launches compare the kernels), the
+     gradient gate (layer 0's time-mix at B 4 x T 128, every parameter's
+     gradient through the WKV kernels against autograd of the plain
+     chunked WKV) and the remat policies full, dots and none bit-equal
+     at 2 repeats;
   i. one JSON line with every kernel's numbers and its launches on the
-     main path (phases e to o, counts reset just before e; ``mds_encode``
-     also timed at phase o's coded-gradient shape, row 5g, after the
-     counts are read), then the result line.
+     main path (phases e to p, counts reset just before e; ``wkv6``'s
+     row with its backward's, ``wkv6_bwd`` also a row of its own;
+     ``mds_encode`` also timed at phase o's coded-gradient shape, row 5g,
+     after the counts are read), then the result line.
 
-Phases j to o start from a clean card (every model and bridge released)
+Phases j to p start from a clean card (every model and bridge released)
 and print the memory still allocated.
 
 Exits non-zero without a result when no CUDA device is visible, or when
@@ -244,6 +261,26 @@ GRAD_K, GRAD_N, GRAD_ARRIVED, GRAD_RNG = 4, 6, (0, 2, 4, 5), 1
 #: CPU test's trees, tests/test_torch_train.py::
 #: test_coded_grads_match_reference)
 GRAD_TOL = 1e-5
+#: phase p: rwkv6-7b trained at its published widths, cut to 8 of its 32
+#: repeats (the eager AdamW step's memory: phase o's peak per parameter
+#: puts the full depth at ~185 GiB), bf16, the stream and step of
+#: phase o (2 microbatches of 4 x 128 tokens, AdamW, warmup 5, remat
+#: "full").  The peak lr is 3e-5: ``tools/train_lr_probe.py --arch
+#: rwkv6-7b --repeats 8`` shows the loss falling at every step but the
+#: last at 3e-5, while at 1e-4 it rises again at steps 3 and 5 and at
+#: 3e-4 and 3e-3 it climbs far above its start
+RWKV_TRAIN_CUT = {"n_repeats": 8}
+RWKV_TRAIN_STEPS = 6
+RWKV_TRAIN_LR = 3e-5
+#: the gradient gate (layer 0's time-mix, B 4 x T 128, bf16): each
+#: parameter's gradient through the kernels against the same loss through
+#: autograd of the plain chunked WKV, in relative L2 over the leaf -- the
+#: two WKV forwards round their outputs to bf16 apart (the kernel's
+#: products on TF32), and every bf16 rounding on the path after moves a
+#: value by up to 2^-9
+RWKV_GRAD_TOL = 1e-2
+#: the remat gate's depth
+RWKV_REMAT_REPEATS = 2
 
 
 def card_line() -> str:
@@ -737,6 +774,7 @@ def phase_c(dev, deepseek_s: int) -> dict:
     gemm_edge_sweep(dev)
     wkv6_extra = wkv6_rows(dev, report)
     rows["wkv6"].update(wkv6_extra)
+    rows["wkv6"].update(wkv6_bwd_rows(dev, report))
     return rows
 
 
@@ -1411,6 +1449,245 @@ def wkv6_rows(dev, report) -> dict:
                                      f"disagrees with the oracle ({err})")
             del r, k, v, w, out, want, chunked
     wkv6_edge_sweep(dev)
+    torch.cuda.empty_cache()
+    return extra
+
+
+#: rows 6t / 6g: rwkv6-7b's train shape (B, T) -- phase p's microbatch of
+#: 4 x 128 tokens -- and the long shape
+WKV_TRAIN = (4, 128)
+WKV_BWD_SHAPES = {"train": WKV_TRAIN, "long": (1, 4096)}
+#: the backward at strong decays (WKV_DECAYS) against float64 autograd of
+#: the sequential recurrence, at a short T
+WKV_BWD_DECAY_T = 64
+#: the backward's float32 operations per (bh, t) and state entry: the
+#: state step, dr (S_t do_t), the D step, dk (D v), dv (Dᵀ k) and dw
+#: (Σ S ⊙ D), 2 each; the kernel's recomputation of S in the reverse
+#: sweep is not counted (the function's least work)
+WKV_BWD_OPS = 12
+WKV_BWD_NAMES = ("dr", "dk", "dv", "dw", "du", "dS_0")
+
+
+def _wkv6_bwd_bound(B: int, T: int, esz: int, H: int = None,
+                    K: int = None) -> tuple:
+    """Least time of one backward call: r, k, v, w, do read and dr, dk,
+    dv, dw written in the input type, u, dS_T read and du, dS_0 written in
+    float32 (no S_0: the train path starts from zeros); 12 K V float32
+    operations per (bh, t) at the FP32 rate."""
+    H = WKV_H if H is None else H
+    K = WKV_K if K is None else K
+    BH = B * H
+    nbytes = (esz * 9 * BH * T * K + 4 * 2 * H * K
+              + 4 * 2 * BH * K * K)
+    return bound(nbytes, [WKV_BWD_OPS * BH * T * K * K / F32_FLOP_PER_S])
+
+
+def _bwd_errs(got, want, esz: int) -> list:
+    """(name, err, tol) of each backward output against its plain
+    version: dr, dk, dv, dw in the input type at 1e-5 x (1 + max |plain|)
+    for float32 (float32 sums in another order) and 2^-7 x (1 + max
+    |plain|) for bf16 (both round a float32 result to bf16, at most one
+    bf16 step apart at the largest entry); du and dS_0 (float32) at 1e-5 x
+    (1 + max |plain|)."""
+    out = []
+    for i, (name, a, b) in enumerate(zip(WKV_BWD_NAMES, got, want)):
+        scale = 1 + (float(b.float().abs().max()) if b.numel() else 0.0)
+        rel = 2.0 ** -7 if esz == 2 and i < 4 else 1e-5
+        err = max_err(a, b.reshape(a.shape)) if a.numel() else 0.0
+        out.append((name, err, rel * scale))
+    return out
+
+
+def _check_errs(tag: str, errs) -> float:
+    """Raise if any output misses its tolerance; the largest err / tol."""
+    bad = [(n, e, t) for n, e, t in errs if not e <= t]
+    if bad:
+        raise AssertionError(f"{tag}: " + ", ".join(
+            f"{n} {e:.3e} > {t:.3e}" for n, e, t in bad))
+    return max(e / t for _, e, t in errs)
+
+
+def _bwd_plain(B: int, H: int, r, k, v, w, u, s0, do, dS):
+    """``ref.wkv6_bwd_ref`` on (BH, T, .) rows."""
+    from repro_torch.kernels import ref
+
+    def heads(t):
+        return None if t is None else t.reshape(B, H, *t.shape[1:])
+    return ref.wkv6_bwd_ref(*(heads(t) for t in (r, k, v, w)), u,
+                            heads(s0), heads(do), heads(dS))
+
+
+def wkv6_bwd_rows(dev, report) -> dict:
+    """The WKV backward kernel against its plain version
+    (``ref.wkv6_bwd_ref``) at rwkv6-7b's train and long shapes in bf16
+    and float32 with a random output and final-state cotangent, the plain
+    version itself against ``torch.autograd`` of ``ref.wkv6_chunked_ref``
+    on the same tensors; at strong decays (WKV_DECAYS) against float64
+    autograd of the sequential recurrence (``ref.wkv6_seq_ref``), with S_0
+    and dS_T; at WKV_EDGES; 16 calls bit-equal; each shape's plan and
+    times (single, queued, from a graph).  Also row 6t, the forward at the
+    train shape.  Returns the numbers for the JSON line."""
+    import torch
+    from repro_torch.kernels import ref, wkv6 as wk
+    from repro_torch.kernels.plan import wkv6_bwd_plan, wkv6_plan
+    H, K = WKV_H, WKV_K
+    extra = {}
+
+    # row 6t: the forward at the train shape, bf16, no S_0
+    B, T = WKV_TRAIN
+    r, k, v, w, u, _ = _wkv6_inputs(dev, B, T, torch.bfloat16)
+    p = wkv6_plan(T, K, K, B * H, 4)
+
+    def fwd():
+        return wk.wkv6_cuda(r, k, v, w, u)
+    out, _ = fwd()
+    want, _ = ref.wkv6_chunked_ref(*(t.reshape(B, H, T, K)
+                                     for t in (r, k, v, w)), u)
+    torch.cuda.synchronize()
+    tol = 2.0 ** -7 * (1 + float(want.float().abs().max()))
+    err = max_err(out, want.reshape(out.shape))
+    if err > tol:
+        raise AssertionError(f"wkv6 train shape: {err} > {tol}")
+    bnd = _wkv6_bound(B, T, 2, False)
+    nums = dict(max_abs_err=err, ms=time_ms(fwd, 20),
+                queued_ms=time_queued_ms(fwd), graph_ms=time_graph_ms(fwd),
+                plain_ms=time_ms(lambda: ref.wkv6_chunked_ref(
+                    *(t.reshape(B, H, T, K) for t in (r, k, v, w)), u)),
+                bound_ms=bnd[0], bound_by=bnd[1], route=p.route)
+    print(f"[c] row 6t, wkv6 forward at the train shape B {B} H {H} T {T} "
+          f"K = V {K} bf16 ({p.route}, grid {p.grid}): max_abs_err="
+          f"{err:.3e} (tol {tol:.3e}); kernel {nums['ms']:.4f} ms single, "
+          f"{nums['queued_ms']:.4f} queued, {nums['graph_ms']:.4f} from a "
+          f"graph; plain {nums['plain_ms']:.3f} ms; bound {bnd[0]:.4f} ms "
+          f"({bnd[1]})", flush=True)
+    extra["train_bfloat16"] = nums
+    del r, k, v, w, out, want
+
+    # the backward at the train and long shapes
+    bwd = {}
+    for label, (B, T) in WKV_BWD_SHAPES.items():
+        bp = wkv6_bwd_plan(T, K, K, B * H)
+        print(f"[c] plan wkv6_bwd {label} B {B} T {T}: head padded to "
+              f"{bp.kk}, columns to {bp.vv}, chunk {bp.chunk} ({bp.n_chunks} "
+              f"checkpoints a row), grid {bp.grid} of {bp.threads} threads, "
+              f"{bp.smem_bytes} B shared, {bp.blocks_per_sm} an SM, scratch "
+              f"{bp.scratch_bytes / 2**20:.1f} MiB", flush=True)
+        for dt in (torch.bfloat16, torch.float32):
+            r, k, v, w, u, _ = _wkv6_inputs(dev, B, T, dt, seed=2)
+            gen = torch.Generator(device=dev).manual_seed(3)
+            do = torch.randn(v.shape, generator=gen, device=dev).to(dt)
+            dS = torch.randn((B * H, K, K), generator=gen, device=dev)
+
+            def call():
+                return wk.wkv6_bwd_cuda(r, k, v, w, u, None, do, dS)
+            got = call()
+            plain_ms, want = time_once(lambda: _bwd_plain(
+                B, H, r, k, v, w, u, None, do, dS))
+            torch.cuda.synchronize()
+            name = str(dt).split(".")[-1]
+            tag = f"wkv6_bwd {label} B {B} H {H} T {T} K = V {K} {name}"
+            errs = _bwd_errs(got, want, r.element_size())
+            worst = _check_errs(tag, errs)
+            # the plain version against autograd of the chunked forward
+            xs = [t.detach().clone().requires_grad_()
+                  for t in (r, k, v, w, u)]
+            o, s = ref.wkv6_chunked_ref(*(t.reshape(B, H, *t.shape[1:])
+                                          for t in xs[:4]), xs[4])
+            ag = torch.autograd.grad(
+                (o.float() * do.reshape(o.shape).float()).sum()
+                + (s * dS.reshape(s.shape)).sum(), xs)
+            del o, s, xs
+            a_errs = _bwd_errs(want[:5], ag, r.element_size())
+            a_worst = _check_errs(f"{tag} plain against autograd", a_errs)
+            del ag
+            if label == "train" and dt == torch.bfloat16:
+                for i, n in enumerate(WKV_BWD_NAMES):
+                    repeat_equal(f"wkv6_bwd train {n}", got[i],
+                                 lambda i=i: call()[i])
+            ms = time_ms(call, 10)
+            q_ms = time_queued_ms(call, 10)
+            g_ms = time_graph_ms(call, 10)
+            bnd = _wkv6_bwd_bound(B, T, r.element_size())
+            scratch_ms = 2 * bp.scratch_bytes / HBM_BYTES_PER_S * 1e3
+            print(f"[c] {tag}: "
+                  + ", ".join(f"{n} {e:.3e} (tol {t:.3e})"
+                              for n, e, t in errs)
+                  + f"; largest err / tol {worst:.3g}; the plain version "
+                  f"against autograd of the chunked forward: largest err / "
+                  f"tol {a_worst:.3g}; kernel {ms:.4f} ms single, "
+                  f"{q_ms:.4f} queued, {g_ms:.4f} from a graph; plain "
+                  f"{plain_ms:.1f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}), "
+                  f"graph / bound {g_ms / bnd[0]:.2f}; the checkpoints' "
+                  f"write and read alone {scratch_ms:.4f} ms at the HBM "
+                  f"rate", flush=True)
+            bwd[f"{label}_{name}"] = dict(
+                max_abs_err=max(e for _, e, _ in errs[:4]), ms=ms,
+                queued_ms=q_ms, graph_ms=g_ms, plain_ms=plain_ms,
+                bound_ms=bnd[0], bound_by=bnd[1], scratch_ms=scratch_ms,
+                max_err_over_tol=worst)
+            if label == "train" and dt == torch.bfloat16:
+                e, t = max(((e, t) for _, e, t in errs[:4]),
+                           key=lambda x: x[0] / x[1])
+                report("wkv6_bwd", "src/repro_torch/csrc/wkv6_bwd.cu",
+                       "src/repro/models/rwkv.py:23", e, t, ms, plain_ms,
+                       None, bnd, queued_ms=q_ms, graph_ms=g_ms)
+            del r, k, v, w, do, dS, got, want
+            torch.cuda.empty_cache()
+
+    # strong decays against float64 autograd of the sequential recurrence
+    B, T = 1, WKV_BWD_DECAY_T
+    for lo, hi, zero in WKV_DECAYS:
+        for dt in (torch.bfloat16, torch.float32):
+            r, k, v, w, u, s0 = _wkv6_inputs(dev, B, T, dt, lo, hi, seed=4,
+                                             zero_every=zero, state=True)
+            gen = torch.Generator(device=dev).manual_seed(5)
+            do = torch.randn(v.shape, generator=gen, device=dev).to(dt)
+            dS = torch.randn(s0.shape, generator=gen, device=dev)
+            got = wk.wkv6_bwd_cuda(r, k, v, w, u, s0, do, dS)
+            xs = [t.detach().double().reshape(B, H, *t.shape[1:])
+                  .requires_grad_() for t in (r, k, v, w)]
+            xs += [u.double().requires_grad_(),
+                   s0.double().reshape(B, H, K, K).requires_grad_()]
+            o, s = ref.wkv6_seq_ref(*xs)
+            want = torch.autograd.grad(
+                (o * do.double().reshape(o.shape)).sum()
+                + (s * dS.double().reshape(s.shape)).sum(), xs)
+            del o, s, xs
+            name = str(dt).split(".")[-1]
+            tag = (f"wkv6_bwd decays w in [{lo}, {hi}]"
+                   f"{f', every {zero}th step 0' if zero else ''} T {T} "
+                   f"{name}")
+            # the oracle's dr, dk, dv, dw in the input type, as the kernel
+            want = [t.to(dt) if i < 4 else t for i, t in enumerate(want)]
+            errs = _bwd_errs(got, want, r.element_size())
+            worst = _check_errs(tag + " against float64 autograd", errs)
+            print(f"[c] {tag}: largest err / tol {worst:.3g} against float64 "
+                  f"autograd of the sequential recurrence (dw "
+                  f"{errs[3][1]:.3e}, tol {errs[3][2]:.3e})", flush=True)
+            del r, k, v, w, u, s0, do, dS, got, want
+
+    # edge shapes, both types, with S_0 where the edge has one
+    worst = 0.0
+    for (B, He, T, Ke, V, st) in WKV_EDGES:
+        for dt in (torch.bfloat16, torch.float32):
+            r, k, v, w, u, s0 = _wkv6_inputs(dev, B, T, dt, state=st,
+                                             seed=T + Ke + V, H=He, K=Ke,
+                                             V=V)
+            gen = torch.Generator(device=dev).manual_seed(6)
+            do = torch.randn(v.shape, generator=gen, device=dev).to(dt)
+            dS = torch.randn((B * He, Ke, V), generator=gen, device=dev)
+            got = wk.wkv6_bwd_cuda(r, k, v, w, u, s0, do, dS)
+            want = _bwd_plain(B, He, r, k, v, w, u, s0, do, dS)
+            torch.cuda.synchronize()
+            worst = max(worst, _check_errs(
+                f"wkv6_bwd edge B {B} H {He} T {T} K {Ke} V {V} S_0 {st} "
+                f"{dt}", _bwd_errs(got, want, r.element_size())))
+    print(f"[c] wkv6_bwd: {len(WKV_EDGES)} edge shapes x 2 types agree with "
+          f"the plain version (largest err / tol {worst:.3g})", flush=True)
+    head = bwd["train_bfloat16"]
+    extra["backward"] = dict(
+        {k: head[k] for k in ("ms", "queued_ms", "graph_ms", "plain_ms",
+                              "bound_ms", "bound_by")}, shapes=bwd)
     torch.cuda.empty_cache()
     return extra
 
@@ -2330,7 +2607,6 @@ def phase_o(dev) -> dict:
     from repro_torch import _tree
     from repro_torch.configs import get_config
     from repro_torch.data import TokenStream
-    from repro_torch.kernels import wkv6 as wkv6_mod
     from repro_torch.models import init_model
     from repro_torch.optim import adafactor_init
     from repro_torch.runtime.train_loop import (TrainLoop, TrainLoopConfig,
@@ -2428,20 +2704,178 @@ def phase_o(dev) -> dict:
         raise AssertionError(f"phase o: Adafactor's loss {ada}")
     del params, opt, step
 
-    # -- the card refuses to train through the WKV kernel --------------------
-    x = torch.zeros((2, 4, 64), device=dev, requires_grad=True)
-    try:
-        wkv6_mod.wkv6_dev(x, x, x, x, torch.zeros((2, 64), device=dev))
-    except RuntimeError as e:
-        print(f"[o] wkv6 on the card with a gradient required refuses: "
-              f"{e}", flush=True)
-    else:
-        raise AssertionError("phase o: wkv6 ran on the card under autograd")
-    del x
-
     state = _coded_grads(dev, cfg, stream)
+    state["adamw_bytes_per_param"] = peak_adamw * 2**30 / n_par
     print(f"[o] phase o {time.perf_counter() - t_phase:.1f} s", flush=True)
     return state
+
+
+def _tmix_grads(params: dict, x, ct, cfg) -> dict:
+    """Gradients of sum(apply_rwkv_tmix(params, x) * ct) by parameter."""
+    import torch
+    from repro_torch.models import apply_rwkv_tmix
+    live = {k: t.detach().requires_grad_() for k, t in params.items()}
+    with torch.enable_grad():
+        out, _ = apply_rwkv_tmix(live, x, cfg=cfg)
+        loss = (out.float() * ct.float()).sum()
+        g = torch.autograd.grad(loss, list(live.values()))
+    return dict(zip(live, g))
+
+
+def phase_p(dev, bytes_per_param: float) -> None:
+    """rwkv6-7b trained at its published widths, 8 of its 32 repeats: the
+    memory reckoning and 6 AdamW steps gated on the loss falling, every
+    WKV forward and backward through the kernels (``rwkv_train_gates``
+    holds its gradients to the plain WKV's after the launch counts are
+    read)."""
+    import torch
+    from repro_torch import _tree, kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.models import init_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.train_loop import make_train_step
+    fresh_card(dev, "p")
+    t_phase = time.perf_counter()
+    full = get_config(RWKV)
+    cfg = _cut(full, RWKV_TRAIN_CUT)
+    tokens = TRAIN_STREAM["seq_len"] * TRAIN_STREAM["global_batch"]
+    card = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    hs = cfg.rwkv_head_size
+    print(f"[p] {cfg.name}: d_model {cfg.d_model}, {cfg.d_model // hs} "
+          f"heads of {hs}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, {cfg.dtype}; reduced: n_repeats {full.n_repeats} "
+          f"→ {cfg.n_repeats}, the eager AdamW step's memory", flush=True)
+    print(f"[p] memory reckoning at phase o's AdamW peak of "
+          f"{bytes_per_param:.1f} B a parameter (bf16 params, grads, "
+          f"moments, the update's float32 temporaries): "
+          f"{full.param_count() / 1e9:.3f} G parameters at full depth → "
+          f"{full.param_count() * bytes_per_param / 2**30:.1f} GiB; "
+          f"{cfg.param_count() / 1e9:.3f} G at {cfg.n_repeats} repeats → "
+          f"{cfg.param_count() * bytes_per_param / 2**30:.1f} GiB, of the "
+          f"card's {card:.1f} GiB", flush=True)
+
+    stream = TokenStream(vocab=cfg.vocab, **TRAIN_STREAM)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_model(0, cfg, dev)
+    n_par = sum(t.numel() for t in _tree.leaves(params))
+    opt = adamw_init(params)
+    step = make_train_step(cfg, n_microbatches=TRAIN_LOOP["n_microbatches"],
+                           lr_peak=RWKV_TRAIN_LR, warmup=TRAIN_LOOP["warmup"],
+                           total_steps=RWKV_TRAIN_STEPS, optimizer="adamw")
+    before = kernels.launch_counts()
+    losses, step_ms = [], []
+    for s in range(RWKV_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, _card_batch(stream, s, dev))
+        losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    grew = _launched(before, "p", ("wkv6", "wkv6_bwd"))
+    steady = sorted(step_ms[1:])
+    med = steady[len(steady) // 2]
+    per_step = cfg.n_repeats * TRAIN_LOOP["n_microbatches"]
+    print(f"[p] straight run, {n_par} parameters, peak lr {RWKV_TRAIN_LR:g}, "
+          f"warmup {TRAIN_LOOP['warmup']}, {RWKV_TRAIN_STEPS} steps of "
+          f"{tokens} tokens: loss by step {[round(x, 4) for x in losses]}; "
+          f"step ms {[round(x, 1) for x in step_ms]}, median of steps 2-"
+          f"{RWKV_TRAIN_STEPS} {med:.1f} ms, {tokens / med * 1e3:.0f} "
+          f"training tokens/s; peak {peak:.2f} GiB "
+          f"({peak * 2**30 / n_par:.1f} B a parameter); WKV launches: "
+          f"forward {grew['wkv6']} (expected {cfg.n_repeats} repeats x "
+          f"{TRAIN_LOOP['n_microbatches']} microbatches x 2 forwards x "
+          f"{RWKV_TRAIN_STEPS} steps = {2 * per_step * RWKV_TRAIN_STEPS}), "
+          f"backward {grew['wkv6_bwd']} (expected "
+          f"{per_step * RWKV_TRAIN_STEPS})", flush=True)
+    if (grew["wkv6"], grew["wkv6_bwd"]) != (2 * per_step * RWKV_TRAIN_STEPS,
+                                            per_step * RWKV_TRAIN_STEPS):
+        raise AssertionError(f"phase p: WKV launches {grew}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"phase p: the loss did not fall over "
+                             f"{len(losses)} steps: {losses}")
+    del params, opt, step
+    fresh_card(dev, "p")
+    print(f"[p] phase p {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def rwkv_train_gates(dev) -> None:
+    """Phase p's gates that compare the WKV kernels with their plain
+    versions, run after the main path's launch counts are read: the
+    gradient gate at rwkv6-7b's width (layer 0's time-mix, B 4 x T 128,
+    bf16: every parameter's gradient through the kernels against the same
+    loss through autograd of the plain chunked WKV) and the remat policies
+    full, dots and none bit-equal at 2 repeats."""
+    import torch
+    from repro_torch import _tree, kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import ModelCtx, init_model, init_rwkv_tmix
+    from repro_torch.runtime.train_loop import value_and_grad
+    fresh_card(dev, "p")
+    full = get_config(RWKV)
+    cfg = _cut(full, RWKV_TRAIN_CUT)
+    B, T = WKV_TRAIN
+
+    # -- the gradient gate at the model's width ------------------------------
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lp = init_rwkv_tmix(gen, cfg, torch.bfloat16, dev)
+    x = torch.randn((B, T, cfg.d_model), generator=gen, device=dev).to(
+        torch.bfloat16)
+    ct = torch.randn(x.shape, generator=gen, device=dev).to(torch.bfloat16)
+    before = kernels.launch_counts()
+    got = _tmix_grads(lp, x, ct, cfg)
+    torch.cuda.synchronize()
+    grew = _launched(before, "p", ("wkv6", "wkv6_bwd"))
+
+    def plain_heads(r, k, v, w, u, state=None):
+        return ref.wkv6_chunked_ref(r, k, v, w, u, state)
+    kernel_heads, ops.wkv6_heads = ops.wkv6_heads, plain_heads
+    try:
+        want = _tmix_grads(lp, x, ct, cfg)
+    finally:
+        ops.wkv6_heads = kernel_heads
+    errs = {}
+    for name in want:
+        a, b = got[name].double(), want[name].double()
+        errs[name] = (float((a - b).norm() / b.norm().clamp(min=1e-30)),
+                      float((a - b).abs().max() / b.abs().max()
+                            .clamp(min=1e-30)))
+    print(f"[p] gradient gate, layer 0's time-mix B {B} x T {T} bf16, "
+          f"{grew['wkv6']} forward and {grew['wkv6_bwd']} backward launch: "
+          f"each parameter's gradient against autograd of the plain chunked "
+          f"WKV, relative L2 (max abs over the leaf's largest): "
+          + ", ".join(f"{n} {e:.2e} ({m:.2e})" for n, (e, m) in errs.items())
+          + f"; tol {RWKV_GRAD_TOL}", flush=True)
+    bad = {n: e for n, (e, _) in errs.items() if not e <= RWKV_GRAD_TOL}
+    if bad:
+        raise AssertionError(f"phase p: the kernels' gradients miss the "
+                             f"plain version's: {bad}")
+    del lp, x, ct, got, want
+
+    stream = TokenStream(vocab=cfg.vocab, **TRAIN_STREAM)
+    mb = TRAIN_STREAM["global_batch"] // TRAIN_LOOP["n_microbatches"]
+
+    # -- remat: full, dots, none bit-equal at 2 repeats ---------------------
+    small = _cut(full, {"n_repeats": RWKV_REMAT_REPEATS})
+    params = init_model(0, small, dev)
+    batch = {k: v[:mb] for k, v in _card_batch(stream, 0, dev).items()}
+    res = {pol: value_and_grad(params, batch, cfg=small, ctx=ModelCtx(pol))
+           for pol in ("none", "full", "dots")}
+    l0, g0 = res["none"]
+    same = {pol: bool(torch.equal(l, l0)) and all(
+        torch.equal(a, b) for a, b in zip(_tree.leaves(g),
+                                          _tree.leaves(g0)))
+        for pol, (l, g) in res.items()}
+    print(f"[p] remat at {RWKV_REMAT_REPEATS} repeats, {mb} x "
+          f"{TRAIN_STREAM['seq_len']} tokens: loss {float(l0):.6f}; the "
+          f"loss and {len(_tree.leaves(g0))} gradient leaves bit-equal to "
+          f"no remat: {same}", flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"phase p: remat policies differ: {same}")
+    del params, batch, res, l0, g0
+    fresh_card(dev, "p")
 
 
 def _coded_grads(dev, cfg, stream) -> dict:
@@ -2739,7 +3173,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
-    from repro_torch import kernels
+    from repro_torch import _tree, kernels
     from repro_torch.kernels import _build
     dev = torch.device("cuda:0")
     t_start = time.perf_counter()
@@ -2774,13 +3208,22 @@ def main() -> int:
     phase_m(dev)
     phase_n(dev, ds_seed)
     grads = phase_o(dev)
+    # row 5g's group gradients wait on the host while phase p trains
+    grads["trees"] = [_tree.map(lambda t: t.cpu(), t)
+                      for t in grads["trees"]]
+    phase_p(dev, grads["adamw_bytes_per_param"])
     launches = kernels.launch_counts()
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"main path never launched {name}")
         rows[name]["launches"] = n
-    # row 5g times the encode after the counts are read: its launches
-    # compare the kernel, they are not the main path's
+    rows["wkv6"]["backward"]["launches"] = launches["wkv6_bwd"]
+    # phase p's gradient and remat gates and row 5g run after the counts
+    # are read: their launches compare the kernels, they are not the main
+    # path's
+    rwkv_train_gates(dev)
+    grads["trees"] = [_tree.map(lambda t: t.to(dev), t)
+                      for t in grads["trees"]]
     rows["mds_encode"]["coded_grads"] = coded_grads_row(dev, grads)
     print(f"[i] total {time.perf_counter() - t_start:.1f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches",
@@ -2790,14 +3233,16 @@ def main() -> int:
             "verify", "coded_grads", "decode_chunk", "trunk", "deepseek_head",
             "deepseek_chunk", "launch_floor",
             "serving_prefill_bfloat16", "serving_prefill_float32",
-            "decode_bfloat16", "decode_float32", "long_prefill_float32")
+            "decode_bfloat16", "decode_float32", "long_prefill_float32",
+            "train_bfloat16", "backward")
     print(json.dumps({"kernels": [{k: rows[n][k] for k in keys
                                    if k in rows[n]}
                                   for n in ("matmul", "coded_matvec",
                                             "mds_encode",
                                             "counter_parity_rows",
                                             "parity_contract",
-                                            "gen_parity_matvec", "wkv6")]}))
+                                            "gen_parity_matvec", "wkv6",
+                                            "wkv6_bwd")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels of the port (coded serving, the static
-executor, the streaming verify, the RWKV-6 WKV recurrence), their
-plain-torch twins (:mod:`.ref`) and the padding/dispatch layer
-(:mod:`.ops`).
+executor, the streaming verify, the RWKV-6 WKV recurrence and its
+backward), their plain-torch twins (:mod:`.ref`) and the padding/dispatch
+layer (:mod:`.ops`).
 
 Each wrapper counts its launches in a plain integer;
 :func:`launch_counts` / :func:`reset_launch_counts` read and clear them, so
@@ -21,7 +21,8 @@ def launch_counts() -> Dict[str, int]:
             "counter_parity_rows": mds_encode.ROWS_LAUNCHES,
             "gen_parity_matvec": mds_encode.GEN_LAUNCHES,
             "parity_contract": mds_encode.CONTRACT_LAUNCHES,
-            "wkv6": wkv6.WKV6_LAUNCHES}
+            "wkv6": wkv6.WKV6_LAUNCHES,
+            "wkv6_bwd": wkv6.WKV6_BWD_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
@@ -32,3 +33,4 @@ def reset_launch_counts() -> None:
     mds_encode.GEN_LAUNCHES = 0
     mds_encode.CONTRACT_LAUNCHES = 0
     wkv6.WKV6_LAUNCHES = 0
+    wkv6.WKV6_BWD_LAUNCHES = 0

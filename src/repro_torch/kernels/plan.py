@@ -27,7 +27,8 @@ import functools
 from typing import Tuple
 
 __all__ = ["TileConfig", "GemmPlan", "CONFIGS", "gemm_plan", "MatvecPlan",
-           "matvec_plan", "Wkv6Plan", "wkv6_plan"]
+           "matvec_plan", "Wkv6Plan", "wkv6_plan", "Wkv6BwdPlan",
+           "wkv6_bwd_plan"]
 
 #: no slab shorter than this many K elements (the second pass and the
 #: pipeline's fill cost more than a shorter slab saves)
@@ -260,3 +261,57 @@ def wkv6_plan(T: int, K: int, V: int, BH: int, vec: int = 4) -> Wkv6Plan:
     return Wkv6Plan("chunked", WKV_CHUNK, WKV_SUB, kk, WKV_VB, 1,
                     (_cdiv(V, WKV_VB), BH), WKV_THREADS,
                     _wkv6_chunked_smem(kk), 1)
+
+
+# -- wkv6 backward (csrc/wkv6_bwd.cu) -----------------------------------------
+#
+# One block per row bh holds the whole state, its head size padded to
+# ``kk`` (64 or 128) and its columns to ``vv`` (64 or 128): 4 kk threads,
+# thread (row, column quarter).  A forward sweep writes the state at every
+# chunk start to a float32 scratch; the reverse sweep recomputes each
+# chunk's states from its checkpoint into shared memory (WKV_BWD_HIST
+# bytes, which sets the chunk) and walks the chunk backwards.
+
+WKV_BWD_HIST = 128 * 1024
+WKV_BWD_V_MAX = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class Wkv6BwdPlan:
+    kk: int                 # head size the kernel is compiled for
+    vv: int                 # state columns the kernel is compiled for
+    chunk: int              # steps a chunk (states kept in shared memory)
+    n_chunks: int           # checkpoints a row
+    grid: Tuple[int]        # (rows B * H,)
+    threads: int
+    smem_bytes: int
+    scratch_bytes: int      # the checkpoints, (BH, n_chunks, kk, vv) f32
+    blocks_per_sm: int      # residency the grid is sized for
+
+
+def _wkv6_bwd_smem(kk: int, vv: int, chunk: int) -> int:
+    """Bytes of the block's shared arrays (csrc/wkv6_bwd.cu): the chunk's
+    states, its inputs (r, k, w; v, do) and two dot products a step, the
+    per-step partial sums of dr, dk, dw over the four column quarters and
+    of dv over the row warps, and u."""
+    floats = (chunk * kk * vv + chunk * (3 * kk + 2 * vv + 2)
+              + chunk * (3 * 4 * kk + (kk // 32) * vv) + kk)
+    return 4 * floats
+
+
+@functools.lru_cache(maxsize=256)
+def wkv6_bwd_plan(T: int, K: int, V: int, BH: int) -> Wkv6BwdPlan:
+    """The launch of the WKV6 backward over ``BH`` rows of ``T`` steps,
+    head size K, V state columns (both input types)."""
+    if K <= 0 or K % 8 or K > WKV_K_MAX or V <= 0 or V > WKV_BWD_V_MAX \
+            or BH <= 0 or BH > 65535 or T < 0:
+        raise ValueError(f"wkv6_bwd_plan: bad shape T={T} K={K} V={V} "
+                         f"BH={BH} (K a multiple of 8 up to {WKV_K_MAX}, V "
+                         f"up to {WKV_BWD_V_MAX}, BH at most 65535)")
+    kk = 64 if K <= 64 else 128
+    vv = 64 if V <= 64 else 128
+    chunk = WKV_BWD_HIST // (4 * kk * vv)
+    nc = _cdiv(T, chunk)
+    return Wkv6BwdPlan(kk, vv, chunk, nc, (BH,), 4 * kk,
+                       _wkv6_bwd_smem(kk, vv, chunk),
+                       4 * BH * nc * kk * vv, 1)

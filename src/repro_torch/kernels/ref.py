@@ -20,7 +20,8 @@ import torch
 __all__ = ["matmul_ref", "coded_matvec_ref", "coded_matvec_batch_ref",
            "mds_encode_ref", "threefry2x32_ref", "counter_parity_rows_ref",
            "parity_contract_ref", "gen_parity_ref", "wkv6_chunk_ref",
-           "wkv6_chunked_ref", "wkv6_subchunk_ref"]
+           "wkv6_chunked_ref", "wkv6_subchunk_ref", "wkv6_seq_ref",
+           "wkv6_bwd_ref"]
 
 _M32 = 0xFFFFFFFF
 _TF_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -279,3 +280,83 @@ def wkv6_subchunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         outs.append(o)
     out = torch.cat(outs, dim=2)[:, :, :T]
     return out.to(dtype), S
+
+
+def wkv6_seq_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor,
+                 state: Optional[torch.Tensor] = None):
+    """The sequential recurrence in the inputs' own type, differentiable
+    (for tests and the card's gates: the oracle whose float64 autograd
+    the backward is held against; nothing on the main path calls it).
+
+    r, k, w (B, H, T, K); v (B, H, T, V); u (H, K); ``state`` (B, H, K, V)
+    or None for zeros.  Decays are clamped to w >= 1e-12, as the
+    reference's log clamps them, so a decay below the clamp gets no
+    gradient.  Returns (out (B, H, T, V), final state (B, H, K, V)), both
+    in the type of r.
+    """
+    wc = torch.clamp(w, min=1e-12)
+    uu = u.to(r.dtype)[None, :, :, None]
+    S = (r.new_zeros(r.shape[:2] + (r.shape[-1], v.shape[-1]))
+         if state is None else state.to(r.dtype))
+    out = []
+    for t in range(r.shape[2]):
+        kv = k[:, :, t, :, None] * v[:, :, t, None, :]
+        out.append(((S + uu * kv) * r[:, :, t, :, None]).sum(dim=-2))
+        S = wc[:, :, t, :, None] * S + kv
+    if not out:
+        return v.new_zeros(v.shape).to(r.dtype), S
+    return torch.stack(out, dim=2), S
+
+
+def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor,
+                 state: Optional[torch.Tensor], do: torch.Tensor,
+                 dS_T: Optional[torch.Tensor] = None):
+    """The backward of the WKV recurrence, the plain twin of
+    ``csrc/wkv6_bwd.cu``, in float32.
+
+    r, k, w (B, H, T, K); v and the output's cotangent ``do`` (B, H, T,
+    V); u (H, K); ``state`` S_0 and the final state's cotangent ``dS_T``
+    (B, H, K, V), each None for zeros.  With the decays clamped to
+    w >= 1e-12, D_T = dS_T and D_t = diag(w_t) D_{t+1} + r_t do_tᵀ:
+
+        dr_t = S_t do_t + u ⊙ k_t (v_t · do_t)
+        dk_t = D_{t+1} v_t + u ⊙ r_t (v_t · do_t)
+        dv_t = D_{t+1}ᵀ k_t + (r_t · (u ⊙ k_t)) do_t
+        dw_t = Σ_v S_t ⊙ D_{t+1}  (0 where w_t < 1e-12)
+        du_h = Σ_{b,t} r_t ⊙ k_t (v_t · do_t),   dS_0 = D_0
+
+    The states S_t and D_{t+1} of every step are kept (two (B, H, T, K, V)
+    float32 tensors), so dw is the direct form at any decay.  Returns (dr,
+    dk, dv, dw) in the type of r, du (H, K) and dS_0 (B, H, K, V) float32.
+    """
+    B, H, T, K = r.shape
+    V = v.shape[-1]
+    dtype = r.dtype
+    rf, kf, vf, dof = (t.float() for t in (r, k, v, do))
+    wf = w.float()
+    wc = torch.clamp(wf, min=1e-12)
+    uf = u.float()[None, :, None, :]
+    S = (torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device)
+         if state is None else state.float())
+    Ss = torch.empty((B, H, T, K, V), dtype=torch.float32, device=r.device)
+    for t in range(T):
+        Ss[:, :, t] = S
+        S = wc[:, :, t, :, None] * S + kf[:, :, t, :, None] \
+            * vf[:, :, t, None, :]
+    D = (torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device)
+         if dS_T is None else dS_T.float())
+    Ds = torch.empty_like(Ss)
+    for t in reversed(range(T)):
+        Ds[:, :, t] = D
+        D = wc[:, :, t, :, None] * D + rf[:, :, t, :, None] \
+            * dof[:, :, t, None, :]
+    vdo = (vf * dof).sum(-1, keepdim=True)
+    dr = torch.einsum("bhtkv,bhtv->bhtk", Ss, dof) + uf * kf * vdo
+    dk = torch.einsum("bhtkv,bhtv->bhtk", Ds, vf) + uf * rf * vdo
+    dv = (torch.einsum("bhtkv,bhtk->bhtv", Ds, kf)
+          + (rf * uf * kf).sum(-1, keepdim=True) * dof)
+    dw = torch.where(wf >= 1e-12, (Ss * Ds).sum(-1), 0.0)
+    du = (rf * kf * vdo).sum(dim=(0, 2))
+    return (dr.to(dtype), dk.to(dtype), dv.to(dtype), dw.to(dtype), du, D)

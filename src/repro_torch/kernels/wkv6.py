@@ -1,13 +1,17 @@
 """RWKV-6 WKV recurrence — the port of ``repro.kernels.wkv6.wkv6_pallas``
 with the model's interface (``repro.models.rwkv.wkv6_chunked``): a
-per-head ``u``, an optional initial state, and the final state returned.
+per-head ``u``, an optional initial state, and the final state returned —
+and its backward, which the reference takes by ``jax``'s autodiff.
 
 The CUDA kernels are ``csrc/wkv6.cu`` (design notes there): a chunked
 tensor-core form for T > 1 and a state-streaming decode for T <= 1, on the
-plan of :func:`repro_torch.kernels.plan.wkv6_plan`.  On CPU tensors
-:func:`wkv6_dev` runs the plain version
-(:func:`repro_torch.kernels.ref.wkv6_chunked_ref`); on CUDA tensors it
-launches the kernel or raises.
+plan of :func:`repro_torch.kernels.plan.wkv6_plan`; and
+``csrc/wkv6_bwd.cu``, the backward, on the plan of
+:func:`repro_torch.kernels.plan.wkv6_bwd_plan`.  :class:`Wkv6Fn` wraps the
+two in one ``torch.autograd.Function``: on CUDA tensors it launches the
+kernels or raises, on CPU tensors it runs their plain versions
+(:func:`repro_torch.kernels.ref.wkv6_chunked_ref`,
+:func:`repro_torch.kernels.ref.wkv6_bwd_ref`).
 """
 from __future__ import annotations
 
@@ -17,13 +21,16 @@ import torch
 
 from . import _build
 from ._launch import I, P, check_cuda, raise_on_error, stream_ptr
-from .plan import WKV_K_MAX, wkv6_plan
-from .ref import wkv6_chunked_ref
+from .plan import WKV_BWD_V_MAX, WKV_K_MAX, wkv6_bwd_plan, wkv6_plan
+from .ref import wkv6_bwd_ref, wkv6_chunked_ref
 
-__all__ = ["wkv6_dev", "wkv6_cuda", "WKV6_LAUNCHES"]
+__all__ = ["wkv6_dev", "wkv6_cuda", "wkv6_bwd_cuda", "Wkv6Fn",
+           "WKV6_LAUNCHES", "WKV6_BWD_LAUNCHES"]
 
-#: kernel launches since the last reset (see :mod:`repro_torch.kernels`)
+#: kernel launches since the last reset (see :mod:`repro_torch.kernels`):
+#: the forward and the backward
 WKV6_LAUNCHES = 0
+WKV6_BWD_LAUNCHES = 0
 
 #: input dtype → the C entry point's ``types`` code
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -38,6 +45,47 @@ def _lib():
     return lib
 
 
+def _bwd_lib():
+    lib = _build.library("wkv6_bwd")
+    if not getattr(lib, "_typed", False):
+        lib.repro_wkv6_bwd.argtypes = [I] + [P] * 15 + [I] * 12 + [P]
+        lib.repro_wkv6_bwd.restype = I
+        lib._typed = True
+    return lib
+
+
+def _check(name: str, r, k, v, w, u, state) -> None:
+    """The forward's and the backward's shared refusals: types and shapes
+    (the devices are checked after, by the caller)."""
+    dt = r.dtype
+    if dt not in _TYPES:
+        raise ValueError(f"{name}: expected float32 or bfloat16, got {dt}")
+    if any(t.dtype != dt for t in (k, v, w)) or u.dtype != torch.float32 \
+            or (state is not None and state.dtype != torch.float32):
+        raise ValueError(f"{name}: r, k, v, w must share one type and u, "
+                         f"state be float32, got {r.dtype} {k.dtype} "
+                         f"{v.dtype} {w.dtype} u {u.dtype}")
+    if r.dim() != 3 or v.dim() != 3 or u.dim() != 2:
+        raise ValueError(f"{name}: expected r, k, v, w of rank 3 and u of "
+                         f"rank 2, got {tuple(r.shape)} {tuple(v.shape)} "
+                         f"{tuple(u.shape)}")
+    BH, T, K = r.shape
+    V = v.shape[-1]
+    H = u.shape[0]
+    if k.shape != r.shape or w.shape != r.shape or v.shape[:2] != (BH, T) \
+            or u.shape[1] != K or H == 0 or BH % H:
+        raise ValueError(f"{name}: shapes differ, r {tuple(r.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)} w "
+                         f"{tuple(w.shape)} u {tuple(u.shape)}")
+    if K % 8 or K > WKV_K_MAX or BH > 65535:
+        raise ValueError(f"{name}: the head size must be a multiple of 8 up "
+                         f"to {WKV_K_MAX} and B*H at most 65535, got K={K}, "
+                         f"BH={BH}")
+    if state is not None and tuple(state.shape) != (BH, K, V):
+        raise ValueError(f"{name}: state must be {(BH, K, V)}, got "
+                         f"{tuple(state.shape)}")
+
+
 def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor,
               state: Optional[torch.Tensor] = None
@@ -50,32 +98,10 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global WKV6_LAUNCHES
     dev, dt = r.device, r.dtype
     # types and shapes first, then devices: every refusal raises
-    if dt not in _TYPES:
-        raise ValueError(f"wkv6: expected float32 or bfloat16, got {dt}")
-    if any(t.dtype != dt for t in (k, v, w)) or u.dtype != torch.float32 \
-            or (state is not None and state.dtype != torch.float32):
-        raise ValueError(f"wkv6: r, k, v, w must share one type and u, "
-                         f"state be float32, got {r.dtype} {k.dtype} "
-                         f"{v.dtype} {w.dtype} u {u.dtype}")
-    if r.dim() != 3 or v.dim() != 3 or u.dim() != 2:
-        raise ValueError(f"wkv6: expected r, k, v, w of rank 3 and u of "
-                         f"rank 2, got {tuple(r.shape)} {tuple(v.shape)} "
-                         f"{tuple(u.shape)}")
+    _check("wkv6", r, k, v, w, u, state)
     BH, T, K = r.shape
     V = v.shape[-1]
     H = u.shape[0]
-    if k.shape != r.shape or w.shape != r.shape or v.shape[:2] != (BH, T) \
-            or u.shape[1] != K or H == 0 or BH % H:
-        raise ValueError(f"wkv6: shapes differ, r {tuple(r.shape)} k "
-                         f"{tuple(k.shape)} v {tuple(v.shape)} w "
-                         f"{tuple(w.shape)} u {tuple(u.shape)}")
-    if K % 8 or K > WKV_K_MAX or BH > 65535:
-        raise ValueError(f"wkv6: the head size must be a multiple of 8 up "
-                         f"to {WKV_K_MAX} and B*H at most 65535, got K={K}, "
-                         f"BH={BH}")
-    if state is not None and tuple(state.shape) != (BH, K, V):
-        raise ValueError(f"wkv6: state must be {(BH, K, V)}, got "
-                         f"{tuple(state.shape)}")
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
                     ("state", state)):
         if t is not None:
@@ -100,32 +126,120 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, s_out
 
 
+def wkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor,
+                  state: Optional[torch.Tensor], do: torch.Tensor,
+                  dS_T: Optional[torch.Tensor] = None):
+    """The WKV6 backward on the card.  r, k, w (BH, T, K), v and the
+    output's cotangent ``do`` (BH, T, V) float32 or bfloat16, all one
+    type; u (H, K) float32; ``state`` S_0 and the final state's cotangent
+    ``dS_T`` (BH, K, V) float32 or None for zeros.  Returns (dr, dk, dv,
+    dw) in the input type, du (H, K) float32 (the kernel's per-row sums
+    added over the batch in a fixed order) and dS_0 (BH, K, V) float32,
+    from one launch on the :func:`wkv6_bwd_plan` of the shape."""
+    global WKV6_BWD_LAUNCHES
+    dev, dt = r.device, r.dtype
+    _check("wkv6_bwd", r, k, v, w, u, state)
+    BH, T, K = r.shape
+    V = v.shape[-1]
+    H = u.shape[0]
+    if do.dtype != dt or do.shape != v.shape:
+        raise ValueError(f"wkv6_bwd: do must be {dt} {tuple(v.shape)}, got "
+                         f"{do.dtype} {tuple(do.shape)}")
+    if dS_T is not None and (dS_T.dtype != torch.float32
+                             or tuple(dS_T.shape) != (BH, K, V)):
+        raise ValueError(f"wkv6_bwd: dS_T must be float32 {(BH, K, V)}, "
+                         f"got {dS_T.dtype} {tuple(dS_T.shape)}")
+    if V > WKV_BWD_V_MAX:
+        raise ValueError(f"wkv6_bwd: at most {WKV_BWD_V_MAX} state columns, "
+                         f"got V={V}")
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
+                    ("state", state), ("do", do), ("dS_T", dS_T)):
+        if t is not None:
+            check_cuda(f"wkv6_bwd {name}", t, t.dtype, t.dim(), dev)
+    dr, dk, dw = (torch.empty_like(r) for _ in range(3))
+    dv = torch.empty_like(v)
+    if BH == 0 or V == 0:
+        return (dr, dk, dv, dw, torch.zeros_like(u),
+                torch.zeros((BH, K, V), dtype=torch.float32, device=dev)
+                if dS_T is None else dS_T.clone())
+    p = wkv6_bwd_plan(T, K, V, BH)
+    du_rows = torch.empty((BH, K), dtype=torch.float32, device=dev)
+    ds0 = torch.empty((BH, K, V), dtype=torch.float32, device=dev)
+    scratch = torch.empty(p.scratch_bytes // 4, dtype=torch.float32,
+                          device=dev)
+    err = _bwd_lib().repro_wkv6_bwd(
+        _TYPES[dt], r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+        u.data_ptr(), None if state is None else state.data_ptr(),
+        do.data_ptr(), None if dS_T is None else dS_T.data_ptr(),
+        dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+        du_rows.data_ptr(), ds0.data_ptr(), scratch.data_ptr(), BH, H, T, K,
+        V, p.kk, p.vv, p.chunk, p.n_chunks, p.threads, p.smem_bytes,
+        p.blocks_per_sm, stream_ptr(dev))
+    raise_on_error("wkv6_bwd", err)
+    WKV6_BWD_LAUNCHES += 1
+    return dr, dk, dv, dw, du_rows.reshape(BH // H, H, K).sum(0), ds0
+
+
+def _heads(t: Optional[torch.Tensor], H: int):
+    """(BH, ·, ·) rows as the plain versions' (B, H, ·, ·)."""
+    return None if t is None else t.reshape(t.shape[0] // H, H,
+                                            *t.shape[1:])
+
+
+class Wkv6Fn(torch.autograd.Function):
+    """WKV6 with its backward: (r, k, v, w, u, state, chunk) → (out, final
+    state), in :func:`wkv6_cuda`'s layout.  On CUDA tensors the forward
+    launches ``csrc/wkv6.cu`` and the backward ``csrc/wkv6_bwd.cu``, or
+    raise; on CPU tensors they run the plain versions (``chunk`` steps a
+    chunk in the forward).  Only the inputs are saved; an unused final
+    state (or output) sends no cotangent, so none is made of zeros."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        if r.device.type != "cpu":
+            return wkv6_cuda(r, k, v, w, u, state)
+        H = u.shape[0]
+        out, s = wkv6_chunked_ref(_heads(r, H), _heads(k, H), _heads(v, H),
+                                  _heads(w, H), u, _heads(state, H),
+                                  chunk=chunk)
+        return out.reshape(v.shape), s.reshape(r.shape[0], *s.shape[2:])
+
+    @staticmethod
+    def backward(ctx, d_out, d_state):
+        r, k, v, w, u, state = ctx.saved_tensors
+        if d_out is None:
+            d_out = torch.zeros_like(v)
+        else:
+            d_out = d_out.to(v.dtype).contiguous()
+        if d_state is not None:
+            d_state = d_state.float().contiguous()
+        if r.device.type != "cpu":
+            dr, dk, dv, dw, du, ds0 = wkv6_bwd_cuda(r, k, v, w, u, state,
+                                                    d_out, d_state)
+        else:
+            H = u.shape[0]
+            dr, dk, dv, dw, du, ds0 = wkv6_bwd_ref(
+                _heads(r, H), _heads(k, H), _heads(v, H), _heads(w, H), u,
+                _heads(state, H), _heads(d_out, H), _heads(d_state, H))
+            dr, dk, dw = (t.reshape(r.shape) for t in (dr, dk, dw))
+            dv = dv.reshape(v.shape)
+            ds0 = ds0.reshape(r.shape[0], *ds0.shape[2:])
+        need = ctx.needs_input_grad
+        return (dr if need[0] else None, dk if need[1] else None,
+                dv if need[2] else None, dw if need[3] else None,
+                du if need[4] else None,
+                ds0 if state is not None and need[5] else None, None)
+
+
 def wkv6_dev(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              w: torch.Tensor, u: torch.Tensor,
              state: Optional[torch.Tensor] = None, *, chunk: int = 64
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """WKV6 over (BH, T, ·) rows with u (H, K): the kernel for CUDA
-    tensors, the plain chunked version (``chunk`` steps per chunk) for CPU
-    tensors.  Returns (out, final state) as :func:`wkv6_cuda` does.
-
-    The kernel has no backward: on the card a call that autograd would
-    record (grad mode on and an input that requires grad) raises rather
-    than return an output that drops its gradient.  The plain version is
-    differentiable."""
-    if r.device.type != "cpu":
-        if torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad
-                for t in (r, k, v, w, u, state)):
-            raise RuntimeError(
-                "wkv6: the CUDA kernel has no backward, so it cannot train "
-                "(run it under torch.no_grad() or inference_mode, or train "
-                "RWKV on the CPU)")
-        return wkv6_cuda(r, k, v, w, u, state)
-    BH, T, K = r.shape
-    H, V = u.shape[0], v.shape[-1]
-    B = BH // H
-    out, s = wkv6_chunked_ref(
-        r.reshape(B, H, T, K), k.reshape(B, H, T, K), v.reshape(B, H, T, V),
-        w.reshape(B, H, T, K), u,
-        None if state is None else state.reshape(B, H, K, V), chunk=chunk)
-    return out.reshape(BH, T, V), s.reshape(BH, K, V)
+    """WKV6 over (BH, T, ·) rows with u (H, K), differentiable through
+    :class:`Wkv6Fn`: the kernels for CUDA tensors, the plain versions
+    (the forward in chunks of ``chunk`` steps) for CPU tensors.  Returns
+    (out, final state) as :func:`wkv6_cuda` does."""
+    return Wkv6Fn.apply(r, k, v, w, u, state, chunk)

@@ -4,10 +4,16 @@ the port of ``repro.models.rwkv``.
 Every branch of the time-mix (full sequence, prefill, one-token decode)
 runs its WKV recurrence through :func:`repro_torch.kernels.ops.wkv6_heads`:
 the hand-written kernel on the card, the plain chunked version on the CPU.
-Decode carries (token-shift states, per-head float32 WKV state).  The
-numerics follow the reference: decays cast to the activation type before
-the WKV, ``u`` in float32, the output norm at ``rms_norm``'s default eps,
-and prefill starting its WKV state from zeros whatever the cache holds.
+Every branch also trains: the call is differentiable through
+:class:`repro_torch.kernels.wkv6.Wkv6Fn`, whose backward is the
+hand-written ``csrc/wkv6_bwd.cu`` on the card and its plain twin on the
+CPU; ``u``'s float32 cast and the decays' cast to the activation type
+carry the gradients back to the parameters' type, as the reference's
+``astype`` does.  Decode carries (token-shift states, per-head float32
+WKV state).  The numerics follow the reference: decays cast to the
+activation type before the WKV, ``u`` in float32, the output norm at
+``rms_norm``'s default eps, and prefill starting its WKV state from zeros
+whatever the cache holds.
 """
 from __future__ import annotations
 

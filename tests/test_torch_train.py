@@ -1,9 +1,10 @@
 """The port's training stack against the reference's, on the CPU in
 float32: the cosine schedule, ``token_nll``, AdamW (with clipping) and
-Adafactor, the loss and its gradients (llama3.2 and deepseek-v3 smoke:
-MLA, MoE, the MTP loss), the train step over 3 steps (microbatches +
-AdamW; Adafactor), the remat policies, coded gradient aggregation, a
-bit-equal resume of ``TrainLoop`` and the launcher.
+Adafactor, the loss and its gradients (llama3.2, deepseek-v3 smoke: MLA,
+MoE, the MTP loss; rwkv6 smoke: the WKV through ``Wkv6Fn`` and its plain
+backward), the train step over 3 steps (microbatches + AdamW; Adafactor),
+the remat policies, coded gradient aggregation, a bit-equal resume of
+``TrainLoop`` and the launcher.
 
 The parameters are the reference's ``init_model`` tree carried across by
 ``params_from_numpy``; the batches come from ``TokenStream``.  Each
@@ -45,7 +46,7 @@ from repro_torch.runtime.train_loop import (TrainLoop,  # noqa: E402
                                             make_train_step,
                                             value_and_grad)
 
-LLAMA, DEEPSEEK = "llama3.2-1b", "deepseek-v3-671b"
+LLAMA, DEEPSEEK, RWKV = "llama3.2-1b", "deepseek-v3-671b", "rwkv6-7b"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -175,13 +176,14 @@ def test_optimizer_update_matches_reference(optimizer):
 
 # -- loss, gradients, the train step ----------------------------------------
 
-@pytest.mark.parametrize("arch", [LLAMA, DEEPSEEK])
+@pytest.mark.parametrize("arch", [LLAMA, DEEPSEEK, RWKV])
 def test_loss_and_grads_match_reference(models, arch):
-    """``value_and_grad`` of the loss (DeepSeek: with the MTP term) against
-    ``jax.value_and_grad`` of the reference's: the loss within 1e-6
-    relative (measured 7.6e-8), every gradient leaf within 2e-5 of its
-    largest entry (float32 through the whole stack and its backward;
-    measured 1.8e-6)."""
+    """``value_and_grad`` of the loss (DeepSeek: with the MTP term; RWKV-6:
+    the WKV's gradient from ``Wkv6Fn``'s plain backward against ``jax``'s
+    autodiff of the chunked form) against ``jax.value_and_grad`` of the
+    reference's: the loss within 1e-6 relative (measured 7.6e-8), every
+    gradient leaf within 2e-5 of its largest entry (float32 through the
+    whole stack and its backward; measured 1.8e-6, RWKV-6 2.1e-6)."""
     jcfg, jp, tcfg, tp = models(arch)
     jb, tb = _batch(tcfg)
     jl, jg = jax.jit(jax.value_and_grad(
@@ -205,7 +207,7 @@ def test_loss_mask_matches_reference(models):
 
 
 @pytest.mark.parametrize("arch,optimizer,n_mb", [
-    (LLAMA, "adamw", 2), (DEEPSEEK, "adafactor", 1)])
+    (LLAMA, "adamw", 2), (DEEPSEEK, "adafactor", 1), (RWKV, "adamw", 2)])
 def test_train_step_matches_reference(models, arch, optimizer, n_mb):
     """3 steps of the port's ``make_train_step`` against the reference's
     (jitted) on the same batches: metrics, params and optimizer state.
@@ -233,12 +235,14 @@ def test_train_step_matches_reference(models, arch, optimizer, n_mb):
     _tree_close(ts, js, 2e-4)
 
 
+@pytest.mark.parametrize("arch", [DEEPSEEK, RWKV])
 @pytest.mark.parametrize("policy", ["full", "dots"])
-def test_remat_policy_gives_bit_equal_grads(models, policy):
+def test_remat_policy_gives_bit_equal_grads(models, policy, arch):
     """Recomputing a repeat of the block (whole, or all but its matmuls)
     gives the gradients of the forward that keeps everything, bit for
-    bit (DeepSeek smoke: MLA, MoE, a prefix layer and MTP)."""
-    _, _, tcfg, tp = models(DEEPSEEK)
+    bit (DeepSeek smoke: MLA, MoE, a prefix layer and MTP; RWKV-6 smoke:
+    ``Wkv6Fn`` run again under the checkpoint's dispatch mode)."""
+    _, _, tcfg, tp = models(arch)
     _, tb = _batch(tcfg)
     l0, g0 = value_and_grad(tp, tb, cfg=tcfg, ctx=ModelCtx("none"))
     l1, g1 = value_and_grad(tp, tb, cfg=tcfg, ctx=ModelCtx(policy))
@@ -322,7 +326,7 @@ def test_coded_grads_match_reference(int8, monkeypatch):
         tcoded.coded_grad_aggregate(tc, tctx, [0, 5])
 
 
-# -- the loop, the launcher, the card's refusal -----------------------------
+# -- the loop, the launcher, the WKV off the CPU ----------------------------
 
 def _loop(ckpt_dir, seed=0):
     cfg = get_smoke_config(LLAMA)
@@ -371,16 +375,28 @@ def test_launcher_trains_and_resumes(tmp_path, capsys):
     assert "step    30" in out and "step    10" not in out
 
 
-def test_wkv6_refuses_to_train_off_the_cpu():
-    """Off the CPU the WKV call goes to the kernel, which has no backward:
-    with an input that requires grad it raises instead of dropping the
-    gradient (meta tensors stand in for the card's here); without grad it
-    goes on to the kernel's own checks."""
+def test_launcher_trains_rwkv(tmp_path, capsys):
+    """``--arch rwkv6-7b --device cpu``: the smoke RWKV-6 trains through
+    ``Wkv6Fn`` (the plain forward and backward on CPU tensors), and 20
+    steps improve the loss and exit 0."""
+    assert tlaunch.main(["--arch", RWKV, "--device", "cpu", "--steps", "20",
+                         "--seq", "32", "--batch", "4", "--ckpt-dir",
+                         str(tmp_path), "--ckpt-every", "20"]) == 0
+    out = capsys.readouterr().out
+    assert "arch=rwkv6-smoke" in out
+    assert "improved" in out and "NOT" not in out
+
+
+def test_wkv6_trains_off_the_cpu_through_the_kernel():
+    """Off the CPU a training call goes through ``Wkv6Fn`` to the kernel:
+    with inputs that require grad (meta tensors stand in for the card's
+    here) it reaches the kernel's own device check, with grad and
+    without, and never the plain version."""
     def inputs(grad):
         t = [torch.empty((2, 4, 8), device="meta", requires_grad=grad)
              for _ in range(4)]
         return t + [torch.empty((2, 8), device="meta")]
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(ValueError, match="expected a tensor on"):
         twkv6.wkv6_dev(*inputs(True))
     with torch.no_grad():
         with pytest.raises(ValueError, match="expected a tensor on"):

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Loss over a few train steps of llama3.2-1b at its published widths and
-depth, for several peak learning rates and parameter dtypes, on one card.
+"""Loss over a few train steps of a model at its published widths (llama3.2-1b
+at its depth by default), for several peak learning rates and parameter
+dtypes, on one card.
 
     python3 tools/train_lr_probe.py [--steps 6] [--warmup 5]
+    python3 tools/train_lr_probe.py --arch rwkv6-7b --repeats 8 --bf16-only
 
 Each run draws the model from seed 0 and trains it with the port's
 ``make_train_step`` (AdamW, cosine warmup, 2 microbatches) on the stream
@@ -10,7 +12,9 @@ Each run draws the model from seed 0 and trains it with the port's
 step 0's batch at every step ("fixed batch"), and prints the loss of
 every step.  It shows which peak lr the 6-step gate of phase o can hold
 to: with 1 024 tokens a step and a 5-step warmup, Adam's first updates
-move every weight by about the lr.
+move every weight by about the lr.  ``--repeats`` cuts the depth to that
+many repeats of the block (``chip_smoke.py``'s phase p trains rwkv6-7b at
+8); ``--bf16-only`` skips the float32 runs.
 """
 from __future__ import annotations
 
@@ -42,6 +46,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--warmup", type=int, default=5)
+    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--repeats", type=int, default=None)
+    ap.add_argument("--bf16-only", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("train_lr_probe: no CUDA device", file=sys.stderr)
@@ -50,7 +57,10 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    base = get_config("llama3.2-1b")
+    base = get_config(args.arch)
+    if args.repeats is not None:
+        base = dataclasses.replace(base, n_repeats=args.repeats)
+    print(f"{base.name}, {base.n_repeats} repeats of the block", flush=True)
     stream = TokenStream(vocab=base.vocab, seq_len=128, global_batch=8,
                          seed=0)
 
@@ -59,6 +69,8 @@ def main(argv=None) -> int:
                 for k, v in stream.batch(s).items()}
 
     for dtype, lr, fixed in RUNS:
+        if args.bf16_only and dtype != "bfloat16":
+            continue
         cfg = dataclasses.replace(base, dtype=dtype)
         params = init_model(0, cfg, dev)
         opt = adamw_init(params)

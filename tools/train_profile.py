@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
-"""Where a train step of llama3.2-1b at its published widths and depth
-spends its time on one card.
+"""Where a train step of a model at its published widths spends its time
+on one card.
 
     python3 tools/train_profile.py [--steps 3]
+    python3 tools/train_profile.py --arch rwkv6-7b --repeats 8
 
-The step is ``chip_smoke.py``'s phase o's (AdamW, remat "full", 2
-microbatches of 4 x 128 tokens, bf16).  After two warm-up steps it
-prints the wall of a step's parts, each ended by a synchronise (the
-forward + backward of one microbatch, the float32 accumulation, the
-AdamW update), then profiles ``--steps`` whole steps with
+The step is ``chip_smoke.py``'s phase o's (llama3.2-1b at its depth, the
+default) or phase p's (rwkv6-7b cut to ``--repeats`` repeats of the
+block): AdamW, remat "full", 2 microbatches of 4 x 128 tokens, bf16.
+After two warm-up steps it prints the wall of a step's parts, each ended
+by a synchronise (the forward + backward of one microbatch, the float32
+accumulation, the AdamW update), then profiles ``--steps`` whole steps with
 ``torch.profiler`` and prints the kernels by device time, the device
 time over the wall (the busy share; one stream, so kernels do not
-overlap) and the step's FLOP rate against the bf16 peak.
+overlap), the device time of the WKV forward and backward kernels and of
+the matrix products, and the step's FLOP rate against the bf16 peak.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import sys
 import time
@@ -45,6 +49,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--repeats", type=int, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("train_profile: no CUDA device", file=sys.stderr)
@@ -53,7 +59,10 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    cfg = get_config("llama3.2-1b")
+    cfg = get_config(args.arch)
+    if args.repeats is not None:
+        cfg = dataclasses.replace(cfg, n_repeats=args.repeats)
+    print(f"{cfg.name}, {cfg.n_repeats} repeats of the block", flush=True)
     stream = TokenStream(vocab=cfg.vocab, seq_len=128, global_batch=8,
                          seed=0)
 
@@ -102,11 +111,12 @@ def main(argv=None) -> int:
             params, opt, m = step(params, opt, batch(3 + s))
             float(m["loss"])
         wall = time.perf_counter() - t0
-    rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()]
+    # the device's own rows (kernels, copies): a host op's row also carries
+    # as self time a kernel launched outside any aten op inside it (the
+    # WKV's ctypes launches inside Wkv6Fn), which would count it twice
+    rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
     kernels = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
-    # device ops (aten::...) carry their kernels' time as self time of the
-    # kernels, not of the op: keep the kernel rows (no "aten::" prefix)
-    kernels = [r for r in kernels if not r[0].startswith("aten::")]
     busy = sum(r[2] for r in kernels) / 1e6
     per = wall / args.steps
     flop = 6 * sum(t.numel() for t in _tree.leaves(params)) * 1024
@@ -116,6 +126,17 @@ def main(argv=None) -> int:
           f"{busy / wall:.3f}; 6 N D = {flop / 1e12:.2f} TFLOP a step: "
           f"{rate / 1e12:.1f} TFLOP/s, {rate / BF16_FLOP_PER_S:.4f} of the "
           f"bf16 peak", flush=True)
+    groups = {"WKV forward (wkv6_chunked_kernel)": "wkv6_chunked",
+              "WKV backward (wkv6_bwd_kernel)": "wkv6_bwd",
+              "matrix products (gemm / nvjet / cutlass)": None}
+    for label, key in groups.items():
+        if key is None:
+            us = sum(r[2] for r in kernels
+                     if any(m in r[0].lower()
+                            for m in ("gemm", "nvjet", "cutlass")))
+        else:
+            us = sum(r[2] for r in kernels if key in r[0])
+        print(f"  {label}: {us / 1e3 / args.steps:.2f} ms a step", flush=True)
     for name, count, us in kernels[:25]:
         print(f"  {us / 1e3 / args.steps:9.2f} ms a step  {count:6d}  "
               f"{name[:110]}", flush=True)
