@@ -1462,24 +1462,47 @@ WKV_BWD_SHAPES = {"train": WKV_TRAIN, "long": (1, 4096)}
 WKV_BWD_DECAY_T = 64
 #: the backward's float32 operations per (bh, t) and state entry: the
 #: state step, dr (S_t do_t), the D step, dk (D v), dv (Dᵀ k) and dw
-#: (Σ S ⊙ D), 2 each; the kernel's recomputation of S in the reverse
-#: sweep is not counted (the function's least work)
+#: (Σ S ⊙ D), 2 each, all at the FP32 rate: the one-block-a-row kernel's
+#: bound, printed beside the two-level route's own (_wkv6_bwd_bound)
 WKV_BWD_OPS = 12
 WKV_BWD_NAMES = ("dr", "dk", "dv", "dw", "du", "dS_0")
 
 
-def _wkv6_bwd_bound(B: int, T: int, esz: int, H: int = None,
+def _wkv6_bwd_bound(B: int, T: int, esz: int, chunk: int, H: int = None,
                     K: int = None) -> tuple:
-    """Least time of one backward call: r, k, v, w, do read and dr, dk,
-    dv, dw written in the input type, u, dS_T read and du, dS_0 written in
-    float32 (no S_0: the train path starts from zeros); 12 K V float32
-    operations per (bh, t) at the FP32 rate."""
+    """Least time of one backward call on its two-level route (csrc/
+    wkv6_bwd.cu).  Bytes: r, k, v, w, do read and dr, dk, dv, dw written
+    in the input type, u, dS_T read and du, dS_0 written in float32 (no
+    S_0: the train path starts from zeros).  Operations, per (bh, t) in
+    units of K V, each on the pipe the route runs it on:
+
+    * on the TF32 tensor cores, 2 operations a product term, once for each
+      product its precision route takes (the kernel's NPS, NPX, NPB: a
+      float32 factor split into head + tail takes 2 against an exact bf16
+      operand, 3 against a float32 one; two bf16 operands 1): level 1's
+      state updates of S and D, 2 K V each, 2 / 3 products (bf16 / f32);
+      level 2's X = S_c dOᵀ and Y = D_e Vᵀ, 2 K V each, 2 / 3; Z = (K ⊙ G)
+      D_e, 2 K V, 3 (both float32); B = dO Vᵀ, 2 chunk V, 1 / 3; dv's
+      (A + diag)ᵀ dO, 2 chunk V, 2 / 3;
+    * on the FMA pipe at the FP32 rate, the direct dw walk: S stepped
+      forward, D stepped backward and Σ_v S ⊙ D, 2 K V each (its
+      recomputation of S from the checkpoints not counted).
+
+    The two pipes run side by side, so each is a term of its own.  The
+    in-chunk pairs, the decay products and the states' scaling are left
+    out, so this stays a lower bound."""
     H = WKV_H if H is None else H
     K = WKV_K if K is None else K
     BH = B * H
     nbytes = (esz * 9 * BH * T * K + 4 * 2 * H * K
               + 4 * 2 * BH * K * K)
-    return bound(nbytes, [WKV_BWD_OPS * BH * T * K * K / F32_FLOP_PER_S])
+    f32 = esz == 4
+    split, exact = (3, 3) if f32 else (2, 1)
+    tc = (2 * 2 * split + 2 * 2 * split + 2 * 3
+          + 2 * chunk / K * exact + 2 * chunk / K * split)
+    steps = BH * T * K * K
+    return bound(nbytes, [tc * steps / TF32_FLOP_PER_S,
+                          6 * steps / F32_FLOP_PER_S])
 
 
 def _bwd_errs(got, want, esz: int) -> list:
@@ -1568,10 +1591,14 @@ def wkv6_bwd_rows(dev, report) -> dict:
     for label, (B, T) in WKV_BWD_SHAPES.items():
         bp = wkv6_bwd_plan(T, K, K, B * H)
         print(f"[c] plan wkv6_bwd {label} B {B} T {T}: head padded to "
-              f"{bp.kk}, columns to {bp.vv}, chunk {bp.chunk} ({bp.n_chunks} "
-              f"checkpoints a row), grid {bp.grid} of {bp.threads} threads, "
-              f"{bp.smem_bytes} B shared, {bp.blocks_per_sm} an SM, scratch "
-              f"{bp.scratch_bytes / 2**20:.1f} MiB", flush=True)
+              f"{bp.kk}, columns to {bp.vv}, 2 levels, chunk {bp.chunk} "
+              f"({bp.n_chunks} a row); level 1 (boundary states) grid "
+              f"{bp.states_grid} of {bp.states_threads} threads, "
+              f"{bp.states_smem} B shared; level 2 (every chunk) grid "
+              f"{bp.grid} of {bp.threads} threads, {bp.smem_bytes} B shared, "
+              f"{bp.blocks_per_sm} an SM, checkpoints every {bp.sub} steps; "
+              f"scratch {bp.scratch_bytes / 2**20:.1f} MiB; {bp.launches} "
+              f"launches a call", flush=True)
         for dt in (torch.bfloat16, torch.float32):
             r, k, v, w, u, _ = _wkv6_inputs(dev, B, T, dt, seed=2)
             gen = torch.Generator(device=dev).manual_seed(3)
@@ -1607,7 +1634,9 @@ def wkv6_bwd_rows(dev, report) -> dict:
             ms = time_ms(call, 10)
             q_ms = time_queued_ms(call, 10)
             g_ms = time_graph_ms(call, 10)
-            bnd = _wkv6_bwd_bound(B, T, r.element_size())
+            bnd = _wkv6_bwd_bound(B, T, r.element_size(), bp.chunk)
+            old_bnd = bound(0, [WKV_BWD_OPS * B * H * T * K * K
+                                / F32_FLOP_PER_S])[0]
             scratch_ms = 2 * bp.scratch_bytes / HBM_BYTES_PER_S * 1e3
             print(f"[c] {tag}: "
                   + ", ".join(f"{n} {e:.3e} (tol {t:.3e})"
@@ -1617,13 +1646,15 @@ def wkv6_bwd_rows(dev, report) -> dict:
                   f"tol {a_worst:.3g}; kernel {ms:.4f} ms single, "
                   f"{q_ms:.4f} queued, {g_ms:.4f} from a graph; plain "
                   f"{plain_ms:.1f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}), "
-                  f"graph / bound {g_ms / bnd[0]:.2f}; the checkpoints' "
+                  f"graph / bound {g_ms / bnd[0]:.2f} (12 K V at "
+                  f"the FP32 rate: {old_bnd:.4f} ms); the boundary states' "
                   f"write and read alone {scratch_ms:.4f} ms at the HBM "
                   f"rate", flush=True)
             bwd[f"{label}_{name}"] = dict(
                 max_abs_err=max(e for _, e, _ in errs[:4]), ms=ms,
                 queued_ms=q_ms, graph_ms=g_ms, plain_ms=plain_ms,
-                bound_ms=bnd[0], bound_by=bnd[1], scratch_ms=scratch_ms,
+                bound_ms=bnd[0], bound_by=bnd[1], bound_12kv_ms=old_bnd,
+                scratch_ms=scratch_ms,
                 max_err_over_tol=worst)
             if label == "train" and dt == torch.bfloat16:
                 e, t = max(((e, t) for _, e, t in errs[:4]),

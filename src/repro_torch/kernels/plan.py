@@ -265,43 +265,74 @@ def wkv6_plan(T: int, K: int, V: int, BH: int, vec: int = 4) -> Wkv6Plan:
 
 # -- wkv6 backward (csrc/wkv6_bwd.cu) -----------------------------------------
 #
-# One block per row bh holds the whole state, its head size padded to
-# ``kk`` (64 or 128) and its columns to ``vv`` (64 or 128): 4 kk threads,
-# thread (row, column quarter).  A forward sweep writes the state at every
-# chunk start to a float32 scratch; the reverse sweep recomputes each
-# chunk's states from its checkpoint into shared memory (WKV_BWD_HIST
-# bytes, which sets the chunk) and walks the chunk backwards.
+# Two launches.  Level 1 steps the state S forward and the cotangent state
+# D backward through chunks of WKV_BWD_CHUNK steps on the tensor cores and
+# writes them at every chunk boundary (S at a chunk's start, D at its end)
+# to a float32 scratch: one block of 4 kk threads per (row, direction).
+# Level 2 runs every chunk of every row at once, one block of 512 threads
+# per (chunk, row), the state padded to kk x vv (64 or 128 each).
 
-WKV_BWD_HIST = 128 * 1024
+WKV_BWD_CHUNK = 16
 WKV_BWD_V_MAX = 128
+WKV_BWD_THREADS = 512       # a level-2 block
 
 
 @dataclasses.dataclass(frozen=True)
 class Wkv6BwdPlan:
-    kk: int                 # head size the kernel is compiled for
-    vv: int                 # state columns the kernel is compiled for
-    chunk: int              # steps a chunk (states kept in shared memory)
-    n_chunks: int           # checkpoints a row
-    grid: Tuple[int]        # (rows B * H,)
+    kk: int                 # head size the kernels are compiled for
+    vv: int                 # state columns the kernels are compiled for
+    chunk: int              # steps a chunk (both levels)
+    sub: int                # steps of S a level-2 thread keeps
+    n_chunks: int           # chunks a row
+    states_grid: Tuple[int, int]        # level 1: (rows B * H, 2)
+    states_threads: int
+    states_smem: int
+    grid: Tuple[int, int]   # level 2: (chunks, rows B * H)
     threads: int
-    smem_bytes: int
-    scratch_bytes: int      # the checkpoints, (BH, n_chunks, kk, vv) f32
-    blocks_per_sm: int      # residency the grid is sized for
+    smem_bytes: int         # level 2's
+    blocks_per_sm: int      # level 2's residency the grid is sized for
+    scratch_bytes: int      # S_c and D_{c+1}: (2, BH, n_chunks, kk, vv) f32
+
+    @property
+    def launches(self) -> int:
+        """CUDA launches a call: level 2 has nothing to do without steps."""
+        return 2 if self.n_chunks else 1
 
 
-def _wkv6_bwd_smem(kk: int, vv: int, chunk: int) -> int:
-    """Bytes of the block's shared arrays (csrc/wkv6_bwd.cu): the chunk's
-    states, its inputs (r, k, w; v, do) and two dot products a step, the
-    per-step partial sums of dr, dk, dw over the four column quarters and
-    of dv over the row warps, and u."""
-    floats = (chunk * kk * vv + chunk * (3 * kk + 2 * vv + 2)
-              + chunk * (3 * 4 * kk + (kk // 32) * vv) + kk)
-    return 4 * floats
+def _wkv6_bwd_states_smem(kk: int, vv: int) -> int:
+    """Bytes of a level-1 block's two chunk buffers: the (x ⊙ factor)
+    tile [kk][chunk + 4], the v or do tile [chunk][vv + 8], the chunk's
+    decay products [kk]."""
+    c = WKV_BWD_CHUNK
+    return 4 * 2 * (kk * (c + 4) + c * (vv + 8) + kk)
+
+
+def _wkv6_bwd_sub(kk: int, vv: int) -> int:
+    """Steps of S a level-2 thread keeps in registers: 32 floats of
+    history over its kk vv / 512 entries."""
+    return 32 * WKV_BWD_THREADS // (kk * vv)
+
+
+def _wkv6_bwd_chunk_smem(kk: int, vv: int) -> int:
+    """Bytes of a level-2 block's shared arrays (rows padded by 4 floats):
+    r, k, w, the decay products F and G, the products X and Y [chunk][kk];
+    v, do and Z [chunk][vv]; B and A [chunk][chunk + 1]; two dot products a
+    step and u; then one region that holds S_c and D_e for the tensor cores,
+    and
+    after them S every ``sub`` steps (at 64 x 64 only) and the walk's
+    partial sums of dw by four column blocks [chunk][4][kk]."""
+    c = WKV_BWD_CHUNK
+    sub = _wkv6_bwd_sub(kk, vv)
+    nck = c // sub - 1 if kk * vv == 4096 else 0
+    fixed = (7 * c * (kk + 4) + 3 * c * (vv + 4) + 2 * c * (c + 1) + 2 * c
+             + kk)
+    region = max(2 * kk * (vv + 4), nck * kk * vv + c * 4 * kk)
+    return 4 * (fixed + region)
 
 
 @functools.lru_cache(maxsize=256)
 def wkv6_bwd_plan(T: int, K: int, V: int, BH: int) -> Wkv6BwdPlan:
-    """The launch of the WKV6 backward over ``BH`` rows of ``T`` steps,
+    """The launches of the WKV6 backward over ``BH`` rows of ``T`` steps,
     head size K, V state columns (both input types)."""
     if K <= 0 or K % 8 or K > WKV_K_MAX or V <= 0 or V > WKV_BWD_V_MAX \
             or BH <= 0 or BH > 65535 or T < 0:
@@ -310,8 +341,10 @@ def wkv6_bwd_plan(T: int, K: int, V: int, BH: int) -> Wkv6BwdPlan:
                          f"up to {WKV_BWD_V_MAX}, BH at most 65535)")
     kk = 64 if K <= 64 else 128
     vv = 64 if V <= 64 else 128
-    chunk = WKV_BWD_HIST // (4 * kk * vv)
-    nc = _cdiv(T, chunk)
-    return Wkv6BwdPlan(kk, vv, chunk, nc, (BH,), 4 * kk,
-                       _wkv6_bwd_smem(kk, vv, chunk),
-                       4 * BH * nc * kk * vv, 1)
+    c = WKV_BWD_CHUNK
+    nc = _cdiv(T, c)
+    return Wkv6BwdPlan(kk, vv, c, _wkv6_bwd_sub(kk, vv), nc, (BH, 2),
+                       4 * kk, _wkv6_bwd_states_smem(kk, vv), (nc, BH),
+                       WKV_BWD_THREADS, _wkv6_bwd_chunk_smem(kk, vv),
+                       2 if kk * vv <= 4096 else 1,
+                       4 * 2 * BH * nc * kk * vv)

@@ -21,7 +21,7 @@ __all__ = ["matmul_ref", "coded_matvec_ref", "coded_matvec_batch_ref",
            "mds_encode_ref", "threefry2x32_ref", "counter_parity_rows_ref",
            "parity_contract_ref", "gen_parity_ref", "wkv6_chunk_ref",
            "wkv6_chunked_ref", "wkv6_subchunk_ref", "wkv6_seq_ref",
-           "wkv6_bwd_ref"]
+           "wkv6_bwd_ref", "wkv6_bwd_chunked_ref"]
 
 _M32 = 0xFFFFFFFF
 _TF_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -360,3 +360,113 @@ def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dw = torch.where(wf >= 1e-12, (Ss * Ds).sum(-1), 0.0)
     du = (rf * kf * vdo).sum(dim=(0, 2))
     return (dr.to(dtype), dk.to(dtype), dv.to(dtype), dw.to(dtype), du, D)
+
+
+def wkv6_bwd_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         w: torch.Tensor, u: torch.Tensor,
+                         state: Optional[torch.Tensor], do: torch.Tensor,
+                         dS_T: Optional[torch.Tensor] = None,
+                         chunk: int = 16):
+    """The two-level form ``csrc/wkv6_bwd.cu`` runs, in float32 torch (for
+    tests: nothing on the main path calls it).  Arguments and results as
+    :func:`wkv6_bwd_ref`; T is padded to the chunk with r = k = v = do = 0
+    and w = 1, which leave both states as they are.
+
+    Level 1, sequential over chunks: the state at every chunk start in
+    forward time and the cotangent state at every chunk end in reverse
+    time, each step a chunk's product
+
+        S_{c+1} = diag(Π w) S_c + (K ⊙ G)ᵀ V,
+        D_c     = diag(Π w) D_{c+1} + (R ⊙ F)ᵀ dO,
+
+    with F_t = Π_{τ<t} w_τ and G_t = Π_{τ>t} w_τ inside the chunk.  Level
+    2, every chunk at once, from S_c and D_e = D_{c+1}: with B[t, s] =
+    do_t · v_s, Q[t, s] = Π_{s<τ<t} w_τ (t > s) and A[t, s] = Σ_k r_t k_s
+    Q[t, s],
+
+        dr_t = F_t ⊙ S_c do_t + Σ_{s<t} B[t, s] Q[t, s] ⊙ k_s + bonus
+        dk_t = G_t ⊙ D_e v_t  + Σ_{s>t} B[s, t] Q[s, t] ⊙ r_s + bonus
+        dv_t = D_eᵀ (G_t ⊙ k_t) + Σ_{s>t} A[s, t] do_s     + bonus
+
+    and dw in the direct form: S_t stepped forward from S_c and D_{t+1}
+    backward from D_e, dw_t = Σ_v S_t ⊙ D_{t+1}.  Every decay factor is a
+    product of clamped decays, each <= 1: no growth factor e^{-Σ log w}
+    and no division, so it holds at any decay.
+    """
+    B, H, T, K = r.shape
+    V, dtype = v.shape[-1], r.dtype
+    pad = (-T) % chunk
+    rf, kf, vf, dof = (torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+                       for t in (r, k, v, do))
+    wc = torch.nn.functional.pad(torch.clamp(w.float(), min=1e-12),
+                                 (0, 0, 0, pad), value=1.0)
+    nc = rf.shape[2] // chunk
+    fwd, bwd = _block_products(wc, chunk)
+    rc, kc, vc, dc, wcc, fc, gc = (
+        t.reshape(B, H, nc, chunk, t.shape[-1])
+        for t in (rf, kf, vf, dof, wc, fwd, bwd))
+    tot = torch.prod(wcc, dim=3)[..., None]
+    zeros = torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device)
+    # level 1: S_c at every chunk start, D_{c+1} at every chunk end
+    S = zeros if state is None else state.float()
+    Sc = []
+    for c in range(nc):
+        Sc.append(S)
+        S = tot[:, :, c] * S + torch.einsum("bhtk,bhtv->bhkv",
+                                            kc[:, :, c] * gc[:, :, c],
+                                            vc[:, :, c])
+    D = zeros if dS_T is None else dS_T.float()
+    Dc = [zeros] * nc
+    for c in reversed(range(nc)):
+        Dc[c] = D
+        D = tot[:, :, c] * D + torch.einsum("bhtk,bhtv->bhkv",
+                                            rc[:, :, c] * fc[:, :, c],
+                                            dc[:, :, c])
+    dS_0 = D
+    shape = (B, H, nc, chunk)
+    dw = torch.empty(shape + (K,), device=r.device)
+    if nc:
+        Sc, De = torch.stack(Sc, dim=2), torch.stack(Dc, dim=2)
+        # level 2, dr dk dv: the boundary states' products and the pairs
+        # inside the chunk
+        Q = torch.zeros(shape + (chunk, K), device=r.device)
+        for t in range(chunk):
+            run = torch.ones_like(wcc[..., 0, :])
+            for s in reversed(range(t)):
+                Q[..., t, s, :] = run
+                run = run * wcc[..., s, :]
+        Bm = torch.einsum("bhctv,bhcsv->bhcts", dc, vc)
+        A = torch.einsum("bhctk,bhcsk,bhctsk->bhcts", rc, kc, Q)
+        dr = (fc * torch.einsum("bhckv,bhctv->bhctk", Sc, dc)
+              + torch.einsum("bhcts,bhctsk,bhcsk->bhctk", Bm, Q, kc))
+        dk = (gc * torch.einsum("bhckv,bhctv->bhctk", De, vc)
+              + torch.einsum("bhcst,bhcstk,bhcsk->bhctk", Bm, Q, rc))
+        dv = (torch.einsum("bhctk,bhckv->bhctv", kc * gc, De)
+              + torch.einsum("bhcst,bhcsv->bhctv", A, dc))
+        # level 2, dw: each chunk's steps from its two boundary states
+        S = Sc
+        hist = []
+        for s in range(chunk):
+            hist.append(S)
+            S = wcc[..., s, :, None] * S \
+                + kc[..., s, :, None] * vc[..., s, None, :]
+        D = De
+        for s in reversed(range(chunk)):
+            dw[..., s, :] = (hist[s] * D).sum(-1)
+            D = wcc[..., s, :, None] * D \
+                + rc[..., s, :, None] * dc[..., s, None, :]
+    else:
+        dr = dk = torch.empty(shape + (K,), device=r.device)
+        dv = torch.empty(shape + (V,), device=r.device)
+    dr, dk, dw, dv = (t.reshape(B, H, nc * chunk, t.shape[-1])[:, :, :T]
+                      for t in (dr, dk, dw, dv))
+    rf, kf, vf, dof = (t[:, :, :T] for t in (rf, kf, vf, dof))
+    uf = u.float()[None, :, None, :]
+    vdo = (vf * dof).sum(-1, keepdim=True)
+    dr = dr + uf * kf * vdo
+    dk = dk + uf * rf * vdo
+    dv = dv + (rf * uf * kf).sum(-1, keepdim=True) * dof
+    dw = torch.where(w.float() >= 1e-12, dw, 0.0)
+    du = (rf * kf * vdo).sum(dim=(0, 2))
+    return (dr.to(dtype), dk.to(dtype), dv.to(dtype), dw.to(dtype), du,
+            dS_0)

@@ -48,7 +48,7 @@ def _lib():
 def _bwd_lib():
     lib = _build.library("wkv6_bwd")
     if not getattr(lib, "_typed", False):
-        lib.repro_wkv6_bwd.argtypes = [I] + [P] * 15 + [I] * 12 + [P]
+        lib.repro_wkv6_bwd.argtypes = [I] + [P] * 15 + [I] * 15 + [P]
         lib.repro_wkv6_bwd.restype = I
         lib._typed = True
     return lib
@@ -134,9 +134,10 @@ def wkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output's cotangent ``do`` (BH, T, V) float32 or bfloat16, all one
     type; u (H, K) float32; ``state`` S_0 and the final state's cotangent
     ``dS_T`` (BH, K, V) float32 or None for zeros.  Returns (dr, dk, dv,
-    dw) in the input type, du (H, K) float32 (the kernel's per-row sums
-    added over the batch in a fixed order) and dS_0 (BH, K, V) float32,
-    from one launch on the :func:`wkv6_bwd_plan` of the shape."""
+    dw) in the input type, du (H, K) float32 (the kernel's sums by row
+    and chunk added over the chunks and the batch in a fixed order) and
+    dS_0 (BH, K, V) float32, from the :func:`wkv6_bwd_plan` of the shape
+    (its ``launches``: the boundary states, then every chunk at once)."""
     global WKV6_BWD_LAUNCHES
     dev, dt = r.device, r.dtype
     _check("wkv6_bwd", r, k, v, w, u, state)
@@ -164,7 +165,8 @@ def wkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 torch.zeros((BH, K, V), dtype=torch.float32, device=dev)
                 if dS_T is None else dS_T.clone())
     p = wkv6_bwd_plan(T, K, V, BH)
-    du_rows = torch.empty((BH, K), dtype=torch.float32, device=dev)
+    du_part = torch.empty((BH, p.n_chunks, K), dtype=torch.float32,
+                          device=dev)
     ds0 = torch.empty((BH, K, V), dtype=torch.float32, device=dev)
     scratch = torch.empty(p.scratch_bytes // 4, dtype=torch.float32,
                           device=dev)
@@ -173,12 +175,15 @@ def wkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         u.data_ptr(), None if state is None else state.data_ptr(),
         do.data_ptr(), None if dS_T is None else dS_T.data_ptr(),
         dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
-        du_rows.data_ptr(), ds0.data_ptr(), scratch.data_ptr(), BH, H, T, K,
-        V, p.kk, p.vv, p.chunk, p.n_chunks, p.threads, p.smem_bytes,
-        p.blocks_per_sm, stream_ptr(dev))
+        du_part.data_ptr(), ds0.data_ptr(), scratch.data_ptr(), BH, H, T, K,
+        V, p.kk, p.vv, p.chunk, p.sub, p.n_chunks, p.states_threads,
+        p.states_smem, p.threads, p.smem_bytes, p.blocks_per_sm,
+        stream_ptr(dev))
     raise_on_error("wkv6_bwd", err)
     WKV6_BWD_LAUNCHES += 1
-    return dr, dk, dv, dw, du_rows.reshape(BH // H, H, K).sum(0), ds0
+    # du: the chunks of a row, then the batch, each in a fixed order
+    du = du_part.sum(1).reshape(BH // H, H, K).sum(0)
+    return dr, dk, dv, dw, du, ds0
 
 
 def _heads(t: Optional[torch.Tensor], H: int):

@@ -1,15 +1,19 @@
 """The WKV backward of the port against the reference's gradient, on the
 CPU.
 
-``ref.wkv6_bwd_ref`` (the plain twin of ``csrc/wkv6_bwd.cu``) against
-``jax.grad`` of ``repro.models.rwkv.wkv6_chunked`` and against float64
-autograd of the sequential recurrence (with an initial state and a final
-state cotangent, at moderate and at strong decays, where only the
-sequential form is finite); ``kernels.wkv6.Wkv6Fn`` on CPU tensors
-against autograd of ``ref.wkv6_chunked_ref``; the backward's launch plan
-(``plan.wkv6_bwd_plan``) and its wrapper's refusals.  The CUDA kernel
-itself runs only on the card (``chip_smoke.py`` phase c holds it to the
-plain version there).  Inputs come from seeded numpy generators.
+``ref.wkv6_bwd_ref`` (the plain version ``Wkv6Fn`` runs on CPU tensors)
+and ``ref.wkv6_bwd_chunked_ref`` (the two-level form ``csrc/wkv6_bwd.cu``
+runs: boundary states chunk by chunk, then every chunk from its two
+boundary states, dw in the direct form) against ``jax.grad`` of
+``repro.models.rwkv.wkv6_chunked`` and against float64 autograd of the
+sequential recurrence (with an initial state and a final state cotangent,
+at moderate and at strong decays, where only the sequential form is
+finite), and against each other at a ragged T; ``kernels.wkv6.Wkv6Fn`` on
+CPU tensors against autograd of ``ref.wkv6_chunked_ref``; the backward's
+launch plan (``plan.wkv6_bwd_plan``) and its wrapper's refusals.  The CUDA
+kernels themselves run only on the card (``chip_smoke.py`` phase c holds
+them to the plain version there).  Inputs come from seeded numpy
+generators.
 
 Tolerances, each relative to 1 + the largest entry of the reference:
 1e-5 against ``jax.grad`` of the chunked form (float32 sums in another
@@ -17,6 +21,8 @@ order; the chunked form's exp(±cumsum log w) factors round apart;
 measured at most 9.4e-7) and 1e-6 against the float64 oracle (one float32
 recurrence; measured at most 2.2e-7).
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -75,6 +81,20 @@ def _close(ours, ref, tol, name=""):
         (name, err)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_grads(T):
+    """``jax.grad`` of sum(wkv6_chunked(r, k, v, w, u)[0] * do) for the
+    seeded inputs of T steps, B 2 H 2 K = V = 16 (shared by the tests of
+    both plain versions)."""
+    r, k, v, w, u, _, do, _ = _inputs(2, 2, T, 16, 16, seed=T)
+
+    def loss(r, k, v, w, u):
+        out, _ = jrwkv.wkv6_chunked(r, k, v, w, u)
+        return jnp.sum(out * do)
+    return tuple(np.asarray(g) for g in jax.grad(
+        loss, argnums=(0, 1, 2, 3, 4))(*map(jnp.asarray, (r, k, v, w, u))))
+
+
 @pytest.mark.parametrize("T", [1, 16, 37, 64, 130])
 def test_bwd_ref_matches_jax_grad_of_reference(T):
     """dr, dk, dv, dw, du of ``wkv6_bwd_ref`` (no S_0, no final-state
@@ -82,16 +102,22 @@ def test_bwd_ref_matches_jax_grad_of_reference(T):
     sum(wkv6_chunked(...)[0] * do), float32, B 2 H 2 K = V = 16, decays
     in [0.5, 1), T across one, ragged and several chunks of 64."""
     r, k, v, w, u, _, do, _ = _inputs(2, 2, T, 16, 16, seed=T)
-
-    def loss(r, k, v, w, u):
-        out, _ = jrwkv.wkv6_chunked(r, k, v, w, u)
-        return jnp.sum(out * do)
-    want = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(
-        *map(jnp.asarray, (r, k, v, w, u)))
     got = tref.wkv6_bwd_ref(*_t(r, k, v, w, u), None, *_t(do), None)
-    for name, a, b in zip(NAMES, got, want):
+    for name, a, b in zip(NAMES, got, _jax_grads(T)):
         assert a.dtype == torch.float32
-        _close(a, np.asarray(b), 1e-5, name)
+        _close(a, b, 1e-5, name)
+
+
+@pytest.mark.parametrize("T", [1, 16, 37, 64, 130])
+def test_bwd_chunked_ref_matches_jax_grad_of_reference(T):
+    """The two-level form (chunks of 16: one, ragged and several) against
+    the same ``jax.grad`` at the same tolerance."""
+    r, k, v, w, u, _, do, _ = _inputs(2, 2, T, 16, 16, seed=T)
+    got = tref.wkv6_bwd_chunked_ref(*_t(r, k, v, w, u), None, *_t(do),
+                                    None)
+    for name, a, b in zip(NAMES, got, _jax_grads(T)):
+        assert a.dtype == torch.float32
+        _close(a, b, 1e-5, name)
 
 
 def _seq64_grads(r, k, v, w, u, s0, do, dS):
@@ -105,19 +131,31 @@ def _seq64_grads(r, k, v, w, u, s0, do, dS):
     return torch.autograd.grad(loss, xs)
 
 
-@pytest.mark.parametrize("lo,hi,zero_every", [
+#: the decay sweeps (lo, hi, every n-th step exactly 0)
+DECAY_SWEEPS = [
     (0.5, 1.0, 0),          # moderate
     (1e-3, 0.3, 0),         # strong: the chunked form leaves float32
     (1e-3, 0.3, 4),         # strong, every 4th step exactly 0 (the clamp)
-    (0.0, 1e-11, 3)])       # below and about the 1e-12 clamp
+    (0.0, 1e-11, 3)]        # below and about the 1e-12 clamp
+
+
+@functools.lru_cache(maxsize=None)
+def _sweep(lo, hi, zero_every):
+    """The seeded inputs of a decay sweep (B 1 H 2 T 41 K 16 V 24, with
+    S_0 and dS_T) and float64 autograd of the sequential recurrence on
+    them."""
+    xs = _inputs(1, 2, 41, 16, 24, seed=3, lo=lo, hi=hi,
+                 zero_every=zero_every)
+    return xs, _seq64_grads(*xs)
+
+
+@pytest.mark.parametrize("lo,hi,zero_every", DECAY_SWEEPS)
 def test_bwd_ref_with_state_matches_float64_sequential(lo, hi, zero_every):
     """Every output of ``wkv6_bwd_ref`` with S_0 and a dS_T cotangent
     against float64 autograd of the sequential recurrence, B 1 H 2 T 41 K
     16 V 24.  A decay below the 1e-12 clamp gets a zero dw, as the
     reference's ``jnp.maximum`` gives it."""
-    r, k, v, w, u, s0, do, dS = _inputs(1, 2, 41, 16, 24, seed=3, lo=lo,
-                                        hi=hi, zero_every=zero_every)
-    want = _seq64_grads(r, k, v, w, u, s0, do, dS)
+    (r, k, v, w, u, s0, do, dS), want = _sweep(lo, hi, zero_every)
     got = tref.wkv6_bwd_ref(*_t(r, k, v, w, u, s0, do, dS))
     for name, a, b in zip(NAMES, got, want):
         _close(a, b, 1e-6, name)
@@ -127,6 +165,42 @@ def test_bwd_ref_with_state_matches_float64_sequential(lo, hi, zero_every):
     if hi <= 0.3:
         out, _ = tref.wkv6_chunked_ref(*_t(r, k, v, w, u))
         assert not torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("lo,hi,zero_every", DECAY_SWEEPS)
+def test_bwd_chunked_ref_with_state_matches_float64_sequential(lo, hi,
+                                                               zero_every):
+    """The two-level form against the same float64 autograd at the same
+    tolerance, T 41 ragged against the chunk of 16: its chunk products of
+    decays (each <= 1, no division) stay finite and accurate at strong
+    decays and at the clamp, and dw is 0 below it."""
+    (r, k, v, w, u, s0, do, dS), want = _sweep(lo, hi, zero_every)
+    got = tref.wkv6_bwd_chunked_ref(*_t(r, k, v, w, u, s0, do, dS))
+    for name, a, b in zip(NAMES, got, want):
+        _close(a, b, 1e-6, name)
+    if zero_every:
+        assert not got[3][:, :, ::zero_every].any()
+
+
+@pytest.mark.parametrize("chunk", [8, 16])
+def test_bwd_chunked_ref_matches_plain_at_ragged_T(chunk):
+    """The two-level form against ``wkv6_bwd_ref`` at T 37 (ragged against
+    both chunks), B 2 H 2 K 16 V 24, with S_0 and dS_T: every output
+    within 1e-6 (both float32, sums in another order); bf16 inputs give
+    bf16 dr, dk, dv, dw within one bf16 step of the plain version."""
+    r, k, v, w, u, s0, do, dS = _inputs(2, 2, 37, 16, 24, seed=7)
+    want = tref.wkv6_bwd_ref(*_t(r, k, v, w, u, s0, do, dS))
+    got = tref.wkv6_bwd_chunked_ref(*_t(r, k, v, w, u, s0, do, dS),
+                                    chunk=chunk)
+    for name, a, b in zip(NAMES, got, want):
+        _close(a, b, 1e-6, name)
+    bf = [t.to(torch.bfloat16) for t in _t(r, k, v, w, do)]
+    want = tref.wkv6_bwd_ref(*bf[:4], *_t(u, s0), bf[4], *_t(dS))
+    got = tref.wkv6_bwd_chunked_ref(*bf[:4], *_t(u, s0), bf[4], *_t(dS),
+                                    chunk=chunk)
+    for name, a, b in zip(NAMES, got, want):
+        assert a.dtype == b.dtype
+        _close(a.float(), b.float(), 2.0 ** -7, name)
 
 
 def test_bwd_ref_types():
@@ -205,35 +279,49 @@ def test_wkv6_fn_grads_match_autograd_of_chunked_ref(with_state,
 
 
 #: (T, K, V, B*H): rwkv6-7b's train shape (a microbatch of 4 x 128) and
-#: long shape, the smoke model's head, chip_smoke.py's WKV_EDGES
+#: long shape, the smoke model's head, chip_smoke.py's WKV_EDGES; then the
+#: padded head and columns, the steps of S a level-2 thread keeps, chunks
 BWD_PLAN_SHAPES = {
-    "train": (128, 64, 64, 256, (64, 64, 8, 16)),
-    "long": (4096, 64, 64, 64, (64, 64, 8, 512)),
-    "smoke": (16, 16, 16, 8, (64, 64, 8, 2)),
-    "no steps": (0, 16, 8, 4, (64, 64, 8, 0)),
-    "one step": (1, 8, 33, 3, (64, 64, 8, 1)),
-    "wide head": (37, 72, 20, 2, (128, 64, 4, 10)),
-    "wide head and V": (100, 128, 70, 1, (128, 128, 2, 50)),
-    "wide V": (33, 16, 100, 2, (64, 128, 4, 9)),
+    "train": (128, 64, 64, 256, (64, 64, 4, 8)),
+    "long": (4096, 64, 64, 64, (64, 64, 4, 256)),
+    "smoke": (16, 16, 16, 8, (64, 64, 4, 1)),
+    "no steps": (0, 16, 8, 4, (64, 64, 4, 0)),
+    "one step": (1, 8, 33, 3, (64, 64, 4, 1)),
+    "wide head": (37, 72, 20, 2, (128, 64, 2, 3)),
+    "wide head and V": (100, 128, 70, 1, (128, 128, 1, 7)),
+    "wide V": (33, 16, 100, 2, (64, 128, 2, 3)),
 }
+
+#: shared memory of an H100 SM, and the most a block may use
+SM_SMEM, BLOCK_SMEM = 228 * 1024, 227 * 1024
 
 
 @pytest.mark.parametrize("label", sorted(BWD_PLAN_SHAPES))
 def test_wkv6_bwd_plan(label):
-    """One block per row, 4 kk threads; the chunk's states fill 128 KB of
-    shared memory (8 steps at kk = vv = 64), which sets the checkpoints a
-    row and the float32 scratch that holds them; the block's shared
-    arrays fit the card's 227 KB."""
-    T, K, V, BH, (kk, vv, chunk, nc) = BWD_PLAN_SHAPES[label]
+    """Two levels over chunks of 16 steps.  Level 1: a block of 4 kk
+    threads per (row, direction).  Level 2: a block of 512 threads per
+    (chunk, row), each thread 32 floats of S history (``sub`` steps of its
+    kk vv / 512 entries), two blocks an SM at 64 x 64 (shared memory for
+    both, 1 KB reserved each).  The float32 scratch holds S at every chunk
+    start and D at every chunk end (64 MiB at the train shape, 512 at the
+    long one); no steps, no level 2."""
+    T, K, V, BH, (kk, vv, sub, nc) = BWD_PLAN_SHAPES[label]
     p = wkv6_bwd_plan(T, K, V, BH)
-    assert (p.kk, p.vv, p.chunk, p.n_chunks) == (kk, vv, chunk, nc)
-    assert p.grid == (BH,) and p.threads == 4 * kk <= 1024
+    assert (p.kk, p.vv, p.sub, p.n_chunks, p.chunk) == (kk, vv, sub, nc, 16)
     assert p.n_chunks * p.chunk >= T > (p.n_chunks - 1) * p.chunk or T == 0
-    assert p.scratch_bytes == 4 * BH * nc * kk * vv
-    assert 4 * chunk * kk * vv == 128 * 1024
-    assert p.smem_bytes <= 227 * 1024 and p.blocks_per_sm == 1
+    assert p.states_grid == (BH, 2) and p.states_threads == 4 * kk <= 1024
+    assert p.states_smem == 4 * 2 * (kk * 20 + 16 * (vv + 8) + kk)
+    assert p.grid == (nc, BH) and p.threads == 512
+    assert p.sub * kk * vv // 512 == 32
+    assert max(p.states_smem, p.smem_bytes) <= BLOCK_SMEM
+    assert p.blocks_per_sm == (2 if kk * vv == 4096 else 1)
+    assert p.blocks_per_sm * (p.smem_bytes + 1024) <= SM_SMEM
+    assert p.scratch_bytes == 4 * 2 * BH * nc * kk * vv
+    assert p.launches == (2 if T else 1)
     if label == "train":
-        assert (p.smem_bytes, p.scratch_bytes) == (170304, 64 * 2**20)
+        assert (p.smem_bytes, p.scratch_bytes) == (111616, 64 * 2**20)
+    if label == "long":
+        assert p.scratch_bytes == 512 * 2**20
 
 
 def test_wkv6_bwd_plan_rejects_what_the_kernel_cannot_take():

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Time the port's float32 GEMM core, float64 encode, ``coded_matvec``,
-counter-derived parity and WKV kernels as built from several checkouts,
-side by side on one card.
+counter-derived parity and WKV kernels (forward and backward) as built
+from several checkouts, side by side on one card.
 
     python3 tools/kernel_variants.py NAME=DIR [NAME=DIR ...] [--rounds N]
-        [--only parity|wkv6] [--out FILE]
+        [--only parity|wkv6|wkv6_bwd] [--out FILE]
 
 Each DIR is a checkout of this repo (``.`` for this one; another commit
 unpacked with ``git archive``, or a copy with the change to be tried).
@@ -42,9 +42,20 @@ times in phase c, beside the same-work PyTorch call:
   with S_0 in bf16, each also replayed from a CUDA graph (device time
   alone), and each WKV kernel's instructions by pipe.  A checkout without
   ``wkv6_plan`` (an older parent) is timed through its own
-  ``chip_smoke.py`` instead.
+  ``chip_smoke.py`` instead;
+* with ``--only wkv6_bwd`` (which builds nothing itself), the WKV
+  backward at phase c's row-6g shapes (train B 4 x T 128 and long B 1 x
+  T 4096, K = V = 64, bf16 and float32, a random output and final-state
+  cotangent), each checkout in a process of its own through its own
+  ``repro_torch.kernels.wkv6.wkv6_bwd_cuda`` (its C entry point and
+  launch plan may differ from this tree's), built by its own ``_build``
+  into its own ``build/kernels``: single calls, queued and replayed from
+  a CUDA graph, and the largest error of dr, dk, dv, dw against the
+  checkout's plain ``ref.wkv6_bwd_ref``, beside this tree's bound of the
+  two-level route.
 
-Each round takes the cases in turn and the variants in a rotated order.
+Each round takes the cases in turn and the variants in a rotated order
+(the backward: each round runs every checkout once, in a rotated order).
 Prints each variant's registers and spills (ptxas), its largest
 difference from the library call (or from the first variant), the
 median, lowest and highest CUDA-event time over the rounds, and the SM
@@ -60,6 +71,7 @@ import ctypes
 import importlib.util
 import json
 import re
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -295,21 +307,66 @@ def wkv6_sass(v: "Variant", cuobjdump: Path) -> dict:
     return out
 
 
+def wkv6_bwd_child(checkout: Path) -> int:
+    """Time one checkout's WKV backward in this process; print one
+    ``RESULT`` JSON line."""
+    # the checkout's own package, imported before chip_smoke (this tree's
+    # inputs and timers) can put this tree's src first
+    sys.path.insert(0, str(checkout.resolve() / "src"))
+    import torch
+    from repro_torch.kernels import ref, wkv6 as wk
+
+    import chip_smoke as cs
+    dev = torch.device("cuda:0")
+    H, K = cs.WKV_H, cs.WKV_K
+    out = {}
+    for label, (B, T) in cs.WKV_BWD_SHAPES.items():
+        for dt in (torch.bfloat16, torch.float32):
+            r, k, v, w, u, _ = cs._wkv6_inputs(dev, B, T, dt, seed=2)
+            gen = torch.Generator(device=dev).manual_seed(3)
+            do = torch.randn(v.shape, generator=gen, device=dev).to(dt)
+            dS = torch.randn((B * H, K, K), generator=gen, device=dev)
+
+            def call():
+                return wk.wkv6_bwd_cuda(r, k, v, w, u, None, do, dS)
+            got = call()
+            heads = [t.reshape(B, H, *t.shape[1:]) for t in (r, k, v, w, do)]
+            want = ref.wkv6_bwd_ref(*heads[:4], u, None, heads[4],
+                                    dS.reshape(B, H, K, K))
+            err = max(cs.max_err(a, b.reshape(a.shape))
+                      for a, b in zip(got[:4], want[:4]))
+            out[f"{label} {str(dt).split('.')[-1]}"] = dict(
+                err=err, ms=cs.time_ms(call, 10),
+                queued_ms=cs.time_queued_ms(call, 10),
+                graph_ms=cs.time_graph_ms(call, 10))
+            del r, k, v, w, do, dS, got, want
+            torch.cuda.empty_cache()
+    print("RESULT " + json.dumps(dict(module=wk.__file__, cases=out)),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
         return 2
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("variants", nargs="+", metavar="NAME=DIR")
+    ap.add_argument("variants", nargs="*", metavar="NAME=DIR")
     ap.add_argument("--rounds", type=int, default=5)
-    ap.add_argument("--only", choices=("all", "parity", "wkv6"),
+    ap.add_argument("--only", choices=("all", "parity", "wkv6", "wkv6_bwd"),
                     default="all",
                     help="parity: build mds_encode alone and run only the "
                          "parity cases; wkv6: build wkv6 alone and run only "
-                         "the WKV cases")
+                         "the WKV cases; wkv6_bwd: run only the WKV "
+                         "backward, each checkout through its own wrapper")
     ap.add_argument("--out", type=Path, default=OUT / "kernel_variants.json")
+    ap.add_argument("--bwd-child", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.bwd_child is not None:
+        return wkv6_bwd_child(args.bwd_child)
+    if not args.variants:
+        ap.error("give at least one NAME=DIR")
     import numpy as np
 
     import chip_smoke as cs
@@ -318,8 +375,8 @@ def main() -> int:
     from repro_torch.kernels._launch import stream_ptr
     from repro_torch.kernels.mds_encode import _as_u32
 
-    sources = {"parity": ("mds_encode",), "wkv6": ("wkv6",)}.get(
-        args.only, SOURCES)
+    sources = {"parity": ("mds_encode",), "wkv6": ("wkv6",),
+               "wkv6_bwd": ()}.get(args.only, SOURCES)
     variants = [Variant(n, Path(d), sources) for n, d in
                 (v.split("=", 1) for v in args.variants)]
     dev = torch.device("cuda:0")
@@ -343,6 +400,8 @@ def main() -> int:
     record = {"card": cs.card_line(), "cases": {}, "sass": {}}
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
     for v in variants:
+        if not v.sources:
+            continue
         v.load()
         print(f"[ptxas] {v.name}: {v.ptxas()}", flush=True)
         if "wkv6" in v.sources:
@@ -694,9 +753,59 @@ def main() -> int:
                 calls={v.name: call_of(v, r, k, vv, w, u, s0, out, s_out)
                        for v in timed})
 
+    def wkv6_bwd_cases() -> None:
+        from repro_torch.kernels.plan import wkv6_bwd_plan
+        runs = {v.name: [] for v in variants}
+        for rnd in range(args.rounds):
+            j = rnd % len(variants)
+            for v in variants[j:] + variants[:j]:
+                p = subprocess.run([sys.executable, __file__, "--bwd-child",
+                                    str(v.checkout)], capture_output=True,
+                                   text=True)
+                line = next((ln for ln in p.stdout.splitlines()
+                             if ln.startswith("RESULT ")), None)
+                if p.returncode or line is None:
+                    print(p.stdout[-3000:], p.stderr[-3000:], flush=True)
+                    raise SystemExit(f"{v.name}: the timing process failed")
+                res = json.loads(line[7:])
+                runs[v.name].append(res["cases"])
+                print(f"round {rnd} {v.name} ({res['module']}): " + "; ".join(
+                    f"{case} err {x['err']:.3e} single {x['ms']:.4f} "
+                    f"queued {x['queued_ms']:.4f} graph {x['graph_ms']:.4f} "
+                    f"ms" for case, x in res["cases"].items()), flush=True)
+        for case in runs[variants[0].name][0]:
+            shape, name = case.split()
+            B, T = cs.WKV_BWD_SHAPES[shape]
+            bp = wkv6_bwd_plan(T, cs.WKV_K, cs.WKV_K, B * cs.WKV_H)
+            bnd = cs._wkv6_bwd_bound(B, T, 2 if name == "bfloat16" else 4,
+                                     bp.chunk)
+            label = (f"wkv6_bwd {shape} B {B} T {T} {name} (bound "
+                     f"{bnd[0]:.4f} ms, {bnd[1]})")
+            print(f"[{label}]", flush=True)
+            rec = {}
+            for v in variants:
+                rs = [r[case] for r in runs[v.name]]
+                rec[v.name] = dict(err=max(r["err"] for r in rs))
+                line = f"  {v.name:16s}"
+                for key in ("ms", "queued_ms", "graph_ms"):
+                    ts = sorted(r[key] for r in rs)
+                    rec[v.name].update({key: statistics.median(ts),
+                                        key + "_lo": ts[0],
+                                        key + "_hi": ts[-1]})
+                    line += (f" {key} {rec[v.name][key]:.4f} (range "
+                             f"{ts[0]:.4f}-{ts[-1]:.4f})")
+                rec[v.name]["graph_over_bound"] = (rec[v.name]["graph_ms"]
+                                                   / bnd[0])
+                print(f"{line}, graph / bound "
+                      f"{rec[v.name]['graph_over_bound']:.2f}, err "
+                      f"{rec[v.name]['err']:.3e}", flush=True)
+            record["cases"][label] = rec
+
     differ = []
     if args.only == "wkv6":
         wkv6_cases()
+    elif args.only == "wkv6_bwd":
+        wkv6_bwd_cases()
     else:
         if args.only == "all":
             gemm_cases()

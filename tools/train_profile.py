@@ -4,17 +4,21 @@ on one card.
 
     python3 tools/train_profile.py [--steps 3]
     python3 tools/train_profile.py --arch rwkv6-7b --repeats 8
+    python3 tools/train_profile.py --arch rwkv6-7b --repeats 8 \
+        --seq-len 4096 --global-batch 2
 
 The step is ``chip_smoke.py``'s phase o's (llama3.2-1b at its depth, the
 default) or phase p's (rwkv6-7b cut to ``--repeats`` repeats of the
-block): AdamW, remat "full", 2 microbatches of 4 x 128 tokens, bf16.
+block): AdamW, remat "full", 2 microbatches of ``--global-batch`` / 2 x
+``--seq-len`` tokens (by default 4 x 128), bf16.
 After two warm-up steps it prints the wall of a step's parts, each ended
 by a synchronise (the forward + backward of one microbatch, the float32
 accumulation, the AdamW update), then profiles ``--steps`` whole steps with
 ``torch.profiler`` and prints the kernels by device time, the device
 time over the wall (the busy share; one stream, so kernels do not
-overlap), the device time of the WKV forward and backward kernels and of
-the matrix products, and the step's FLOP rate against the bf16 peak.
+overlap), the device time of the WKV forward and backward kernels (and
+their share of the step's device time) and of the matrix products, and
+the step's FLOP rate against the bf16 peak.
 """
 from __future__ import annotations
 
@@ -51,7 +55,11 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--repeats", type=int, default=None)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--global-batch", type=int, default=8)
     args = ap.parse_args(argv)
+    if args.global_batch % 2:
+        ap.error("--global-batch must be even (two microbatches)")
     if not torch.cuda.is_available():
         print("train_profile: no CUDA device", file=sys.stderr)
         return 2
@@ -63,8 +71,9 @@ def main(argv=None) -> int:
     if args.repeats is not None:
         cfg = dataclasses.replace(cfg, n_repeats=args.repeats)
     print(f"{cfg.name}, {cfg.n_repeats} repeats of the block", flush=True)
-    stream = TokenStream(vocab=cfg.vocab, seq_len=128, global_batch=8,
-                         seed=0)
+    stream = TokenStream(vocab=cfg.vocab, seq_len=args.seq_len,
+                         global_batch=args.global_batch, seed=0)
+    micro = args.global_batch // 2
 
     def batch(s):
         return {k: torch.from_numpy(v).to(dev)
@@ -87,7 +96,7 @@ def main(argv=None) -> int:
         return out, (time.perf_counter() - t0) * 1e3
 
     b = batch(2)
-    mb = {k: v[:4] for k, v in b.items()}
+    mb = {k: v[:micro] for k, v in b.items()}
     (_, g), t_vg = timed(lambda: value_and_grad(params, mb, cfg=cfg))
     acc = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
            for p in _tree.leaves(params)]
@@ -98,8 +107,9 @@ def main(argv=None) -> int:
     _, t_opt = timed(lambda: adamw_update(
         params, grads, opt, lr=cosine_warmup(1e-4, 5, 6)))
     del g, acc, grads
-    print(f"parts: forward + backward of one microbatch (4 x 128 tokens, "
-          f"remat full) {t_vg:.1f} ms; float32 accumulation {t_acc:.1f} "
+    print(f"parts: forward + backward of one microbatch ({micro} x "
+          f"{args.seq_len} tokens, remat full) {t_vg:.1f} ms; float32 "
+          f"accumulation {t_acc:.1f} "
           f"ms; AdamW update {t_opt:.1f} ms", flush=True)
 
     torch.cuda.synchronize()
@@ -119,7 +129,8 @@ def main(argv=None) -> int:
     kernels = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
     busy = sum(r[2] for r in kernels) / 1e6
     per = wall / args.steps
-    flop = 6 * sum(t.numel() for t in _tree.leaves(params)) * 1024
+    flop = 6 * sum(t.numel() for t in _tree.leaves(params)) \
+        * args.seq_len * args.global_batch
     rate = flop / per
     print(f"{args.steps} steps: wall {per * 1e3:.1f} ms a step, device "
           f"time {busy / args.steps * 1e3:.1f} ms a step, busy share "
@@ -127,8 +138,9 @@ def main(argv=None) -> int:
           f"{rate / 1e12:.1f} TFLOP/s, {rate / BF16_FLOP_PER_S:.4f} of the "
           f"bf16 peak", flush=True)
     groups = {"WKV forward (wkv6_chunked_kernel)": "wkv6_chunked",
-              "WKV backward (wkv6_bwd_kernel)": "wkv6_bwd",
+              "WKV backward (wkv6_bwd_*_kernel)": "wkv6_bwd",
               "matrix products (gemm / nvjet / cutlass)": None}
+    wkv_us = 0.0
     for label, key in groups.items():
         if key is None:
             us = sum(r[2] for r in kernels
@@ -136,7 +148,12 @@ def main(argv=None) -> int:
                             for m in ("gemm", "nvjet", "cutlass")))
         else:
             us = sum(r[2] for r in kernels if key in r[0])
-        print(f"  {label}: {us / 1e3 / args.steps:.2f} ms a step", flush=True)
+            wkv_us += us
+        print(f"  {label}: {us / 1e3 / args.steps:.2f} ms a step, "
+              f"{us / 1e6 / busy:.4f} of the device time", flush=True)
+    print(f"  WKV forward and backward: {wkv_us / 1e3 / args.steps:.2f} ms "
+          f"a step, {wkv_us / 1e6 / busy:.4f} of the device time",
+          flush=True)
     for name, count, us in kernels[:25]:
         print(f"  {us / 1e3 / args.steps:9.2f} ms a step  {count:6d}  "
               f"{name[:110]}", flush=True)
