@@ -39,7 +39,11 @@ exits non-zero):
      ragged, unaligned and split-K edge shapes, and repeated calls of
      each at its main shapes bit-equal; ``coded_matvec`` at
      deepseek-v3-671b's head tiles (L = 129 536, K = 7 168, C = 4) and
-     the parity kernels at phase n's frozen DeepSeek solve;
+     the parity kernels at phase n's frozen DeepSeek solve; then the
+     decode's two routes for a parity minor on a synthetic head plan
+     whose unknowns are known: the float32 LU refined in float64 at s =
+     110 500 parity rows (past the float64 minor's cap), and both routes
+     at s = 88 694 (error, sweeps, factor and sweep times, peak memory);
   d. uncoded serving of llama3.2-1b at its published widths (bf16):
      prefill and decode tokens/s;
   e. coded serving of llama3.2-1b at its published widths: head scope,
@@ -72,7 +76,8 @@ exits non-zero):
      5e-4 head tolerance and the argmax match is 1.0;
   l. coded serving of llama3.2-1b in trunk scope at its published widths
      (seed from a weightless probe of the frozen plans, ``plan_probe``),
-     gated on the uncoded twin's tokens; a faulted serve at 2 layers;
+     gated on the uncoded twin's tokens; a faulted serve at 2 layers and
+     seed 0, whose re-planned head decodes on the refined route;
   m. the paper's Monte Carlo on the card against numpy;
   n. the remaining mixers at their published widths, each model from a
      clean card: deepseek-v3-671b (MLA, MoE, MTP; cut to 2 layers),
@@ -109,8 +114,19 @@ exits non-zero):
      gradient through the WKV kernels against autograd of the plain
      chunked WKV) and the remat policies full, dots and none bit-equal
      at 2 repeats;
+  q. the sharded forward on torch.distributed: one NCCL rank per visible
+     card (spawned), ``make_local_mesh``, parameters as DTensors under the
+     sharding rules, ``model_fwd``, ``prefill`` and 3 decode steps at the
+     published widths of llama3.2-1b, rwkv6-7b (full depth: the WKV
+     kernel under ``local_map``) and dbrx-132b (4 layers: the MoE's
+     expert-parallel bodies), held against the unsharded port on the same
+     weights (5e-3 x max |logit|, on one card the dense two bit for
+     bit; over several cards the bf16 errors printed and the three held
+     in float32, dbrx at 2 layers; two sharded runs bit-equal), with
+     prefill tokens/s and peak memory beside the unsharded run's;
   i. one JSON line with every kernel's numbers and its launches on the
-     main path (phases e to p, counts reset just before e; ``wkv6``'s
+     main path (phases e to q, counts reset just before e, phase q's
+     ranks' added; ``wkv6``'s
      row with its backward's, ``wkv6_bwd`` also a row of its own;
      ``mds_encode`` also timed at phase o's coded-gradient shape, row 5g,
      after the counts are read), then the result line.
@@ -281,6 +297,32 @@ RWKV_TRAIN_LR = 3e-5
 RWKV_GRAD_TOL = 1e-2
 #: the remat gate's depth
 RWKV_REMAT_REPEATS = 2
+#: phase c's decode-route cases: a synthetic head decode (L_HEAD columns,
+#: s parity rows, the pinned values zero) whose unknowns are known: the
+#: refined route at the head size phase l's faulted serve re-planned to at
+#: seed 0 (PR 19: ~110 500 rows, 91.05 GiB in float64), and both routes at
+#: phase e's largest float64 solve
+REFINED_S = 110_500
+F64_S = 88_694
+#: the refined decode against the known unknowns, relative to max |z|
+ROUTE_TOL = 1e-9
+#: phase q: the sharded forward on torch.distributed, one NCCL rank per
+#: visible card over ("data", "model") = (1, cards), at the published
+#: widths: (arch, the depth cut or None, why), MoE uncapped
+MESH_MODELS = (
+    (ARCH, None, "not cut"),
+    (RWKV, None, "not cut (the WKV kernel under the mesh)"),
+    ("dbrx-132b", dict(n_repeats=4), "40 -> 4 layers, phase n's cut"),
+)
+#: phase q over several cards: the models again in float32 (dbrx cut to 2
+#: layers: its float32 weights and their shards share one card)
+MESH_F32 = ((ARCH, None, "float32"), (RWKV, None, "float32"),
+            ("dbrx-132b", dict(n_repeats=2), "float32, 40 -> 2 layers"))
+#: phase q's batch, prompt and decode steps
+MESH_RUN = (4, 32, 3)
+#: phase q's gate, x max |logit| (the reference's sharded test's); on one
+#: card the dense models must also be bit-equal
+MESH_TOL = 5e-3
 
 
 def card_line() -> str:
@@ -776,6 +818,109 @@ def phase_c(dev, deepseek_s: int) -> dict:
     rows["wkv6"].update(wkv6_extra)
     rows["wkv6"].update(wkv6_bwd_rows(dev, report))
     return rows
+
+
+class _SynthHead:
+    """What a decode member reads of a coded head: its parity key, width L,
+    device and parity counters (draw 0)."""
+
+    def __init__(self, dev):
+        self.pkey, self.L, self.device = (0x1234ABCD, 0x9E3779B8), L_HEAD, dev
+
+    def parity_ctrs(self, ids):
+        from repro_torch.core import mds
+        return mds.parity_counters(np.asarray(ids), 0)
+
+
+def _synthetic_decode(dev, s: int, budget=None) -> dict:
+    """Decode a synthetic head plan of ``s`` parity rows whose unknowns z
+    are known (y = R[par, unk] @ z in float64 from the contraction
+    kernel; the L - s pinned values zero) through the serving decode's
+    member solve, with ``packing.MINOR_BUDGET`` = ``budget``."""
+    import torch
+    from repro_torch.serve_coded import packing
+    lin = _SynthHead(dev)
+    rng = np.random.default_rng(s)
+    unk = np.sort(rng.permutation(L_HEAD)[:s])
+    known = np.setdiff1d(np.arange(L_HEAD), unk)
+    member = packing._DeviceMember(
+        lin, np.concatenate([known, L_HEAD + np.arange(s)]))
+    gen = torch.Generator(device=dev).manual_seed(s)
+    z = torch.randn((s, BATCH), generator=gen, dtype=torch.float64,
+                    device=dev)
+    y = torch.zeros((L_HEAD, BATCH), dtype=torch.float64, device=dev)
+    y[known.size:] = member._minor_product(z)
+    out = torch.empty_like(y)
+    saved, packing.MINOR_BUDGET = packing.MINOR_BUDGET, budget
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        route = packing.minor_route(s, dev)
+        t0 = time.perf_counter()
+        member.factor(route)
+        torch.cuda.synchronize()
+        t_factor = time.perf_counter() - t0
+        sweeps0 = len(packing.SWEEPS)
+        t0 = time.perf_counter()
+        member.solve(y, out)
+        torch.cuda.synchronize()
+        t_solve = time.perf_counter() - t0
+    finally:
+        packing.MINOR_BUDGET = saved
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    sweeps = packing.SWEEPS[sweeps0] if route == "refined" else 0
+    contract_ms = time_ms(lambda: member._minor_product(z), 3)
+    from repro_torch.stream import backend as bk
+    lu_ms = time_ms(lambda: bk.lu_solve_torch(member.lu, z.to(
+        member.lu[0].dtype)), 3)
+    err = max_err(out[torch.from_numpy(unk).to(dev)], z) \
+        / float(z.abs().max())
+    res = dict(s=s, route=route, err=err, sweeps=sweeps,
+               factor_s=t_factor, solve_ms=1e3 * t_solve,
+               contract_ms=contract_ms, lu_solve_ms=lu_ms, peak_gib=peak,
+               z=out[torch.from_numpy(unk).to(dev)].cpu())
+    print(f"[c] decode route {route} at s = {s} (L {L_HEAD}, {BATCH} "
+          f"columns): max |z - z_true| / max |z| {err:.3e} (tol "
+          f"{ROUTE_TOL:.0e}); minor build + factor {t_factor:.2f} s, first "
+          f"solve {1e3 * t_solve:.1f} ms with {sweeps} refinement sweeps "
+          f"(a sweep: the minor's float64 product {contract_ms:.2f} ms + an "
+          f"LU solve {lu_ms:.2f} ms), peak {peak:.2f} GiB", flush=True)
+    del member, out, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not np.isfinite(err):
+        raise AssertionError(f"decode route {route} at s = {s}: {err}")
+    return res
+
+
+def decode_route_rows(dev) -> None:
+    """Phase c's decode-route cases: the refined route past the float64
+    minor's cap (s = REFINED_S), and both routes at F64_S, the float64
+    one by size, the refined one by a lowered budget.  The refined route
+    must decode the known unknowns within ROUTE_TOL at both sizes, and at
+    F64_S no less exactly than the float64 LU, whose own error is
+    printed beside it (an LU's backward error grows with s: it is not
+    held to ROUTE_TOL)."""
+    big = _synthetic_decode(dev, REFINED_S)
+    f64 = _synthetic_decode(dev, F64_S)
+    ref = _synthetic_decode(dev, F64_S, budget=8 * F64_S ** 2 - 1)
+    agree = max_err(ref["z"], f64["z"]) / float(f64["z"].abs().max())
+    print(f"[c] decode routes at s = {F64_S}: refined against float64 "
+          f"{agree:.3e}, against the known z {ref['err']:.3e} and "
+          f"{f64['err']:.3e}; factor {ref['factor_s']:.2f} s against "
+          f"{f64['factor_s']:.2f} s, first solve {ref['solve_ms']:.1f} ms "
+          f"against {f64['solve_ms']:.1f} ms, peak {ref['peak_gib']:.2f} "
+          f"against {f64['peak_gib']:.2f} GiB", flush=True)
+    if (big["route"], f64["route"], ref["route"]) != ("refined", "float64",
+                                                     "refined"):
+        raise AssertionError(f"decode routes: {big['route']} at s = "
+                             f"{REFINED_S}, {f64['route']} and "
+                             f"{ref['route']} at s = {F64_S}")
+    if max(big["err"], ref["err"]) > ROUTE_TOL or ref["err"] > f64["err"]:
+        raise AssertionError(f"the refined decode missed the known z: "
+                             f"{big['err']} at s = {REFINED_S}, "
+                             f"{ref['err']} at s = {F64_S} (float64 LU "
+                             f"{f64['err']})")
 
 
 def trunk_matvec_rows(dev, gen) -> dict:
@@ -2228,12 +2373,11 @@ def phase_l(dev) -> None:
     fresh_card(dev, "l")
 
     # -- faulted: the published widths at 2 layers, seeded into the memo.
-    # Quarantines re-plan the serve, and a head plan can then need more
-    # parity rows than the card holds as a float64 minor (~95k; seed 0's
-    # faulted serve re-planned to ~110k): the seed is the first whose
-    # frozen head prefix is systematic
+    # Quarantines re-plan the serve, and at seed 0, the first candidate, a
+    # re-planned head needs more parity rows (~110k) than the card holds
+    # as a float64 minor: its decode takes the refined route
     cut = dataclasses.replace(cfg, n_repeats=TRUNK_FAULT_LAYERS)
-    seed = _pick_trunk_seed(cut, head_solve=False)
+    seed = TRUNK_SEED_CANDIDATES[0]
     serve._MODEL_CACHE[(ARCH, False, seed, str(dev))] = (
         cut, init_model(seed, cut, dev))
     fc = FaultConfig(seed=5, corrupt_rate=0.3, corrupt_kind="sign_flip",
@@ -2247,12 +2391,22 @@ def phase_l(dev) -> None:
     bridge.faults = fc
     torch.cuda.reset_peak_memory_stats(dev)
     before = kernels.launch_counts()
+    routes0, sweeps0, rel0 = (dict(packing.ROUTES), len(packing.SWEEPS),
+                              len(packing.RELEASED))
     t0 = time.perf_counter()
     rep = bridge.serve(_trunk_requests(bridge, seed))
     t_fault = time.perf_counter() - t0
     grew = {k: v - before[k] for k, v in kernels.launch_counts().items()}
     f = rep.faults
     same = rep.tokens == clean.tokens
+    routes = {k: v - routes0[k] for k, v in packing.ROUTES.items()}
+    sweeps = packing.SWEEPS[sweeps0:]
+    released = packing.RELEASED[rel0:]
+    print(f"[l] faulted: minors factored by route {routes}; refined solves "
+          f"{len(sweeps)}, sweeps each (min, max) "
+          f"{(min(sweeps), max(sweeps)) if sweeps else None}; cached "
+          f"factors released for room {len(released)} "
+          f"({sum(released) / 2**30:.2f} GiB)", flush=True)
     degraded = (rep.decode_modes or {}).get("degraded", 0)
     print(f"[l] faulted: wall {t_fault:.2f} s (clean twin {t_clean:.2f} s), "
           f"tokens equal clean {same}, decode modes {rep.decode_modes}, "
@@ -2271,6 +2425,9 @@ def phase_l(dev) -> None:
     if f["corrupt_applied"] <= 0:
         raise AssertionError("phase l faulted serve: no corruption reached "
                              "a decode")
+    if routes["refined"] <= 0:
+        raise AssertionError("phase l faulted serve: no minor took the "
+                             "refined route")
     del bridge
     fresh_card(dev, "l")
 
@@ -3033,6 +3190,192 @@ def coded_grads_row(dev, state: dict) -> dict:
                 bound_ms=bnd[0], bound_by=bnd[1], max_abs_err=err)
 
 
+def _q_run(cfg, params, toks, dev, ctx, mesh=None) -> dict:
+    """``model_fwd`` over the prompt, ``prefill`` + ``MESH_RUN``'s decode
+    steps (caches replicated over ``mesh`` when given): the logits as
+    full tensors and the prefill's and decodes' seconds."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step, model_fwd, prefill
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.ops import is_dtensor
+
+    def full(t):
+        return t.full_tensor() if is_dtensor(t) else t
+    B, P, S = MESH_RUN
+    with torch.no_grad():
+        fwd = full(model_fwd(params, {"tokens": toks[:, :P]}, cfg=cfg,
+                             ctx=ctx)["logits"])
+        caches = serve.zero_caches(cfg, B, P + S + 8, device=dev)
+        if mesh is not None:
+            caches = sh.replicated(caches, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches = prefill(params, {"tokens": toks[:, :P]}, caches,
+                             cfg=cfg, ctx=ctx)
+        lg = full(lg)
+        torch.cuda.synchronize()
+        t_pf = time.perf_counter() - t0
+        inc = [lg]
+        for i in range(S):
+            pos = torch.full((B,), P + i, dtype=torch.int64, device=dev)
+            lg, caches = decode_step(params, toks[:, P + i:P + i + 1], pos,
+                                     caches, cfg=cfg, ctx=ctx)
+            inc.append(full(lg))
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0 - t_pf
+    return dict(fwd=fwd, inc=torch.cat(inc, dim=1), prefill_s=t_pf,
+                decode_s=t_dec)
+
+
+def _q_model(arch: str, cut, why: str, dev, mesh, dtype=None) -> dict:
+    """One config of phase q on this rank: the unsharded port, then the
+    sharded one on the same weights (each run twice: the second is
+    timed), gated."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import ModelCtx, init_model, moe
+    from repro_torch.parallel import ops as pops
+    from repro_torch.parallel import sharding as sh
+    import dataclasses
+    cfg = _uncapped(_cut(get_config(arch), cut))
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    B, P, S = MESH_RUN
+    params = init_model(0, cfg, dev)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, size=(B, P + S))).to(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    plain = [_q_run(cfg, params, toks, dev, ModelCtx()) for _ in range(2)]
+    peak_u = torch.cuda.max_memory_allocated(dev) / 2**30
+    ps = sh.shard_params(params, mesh)
+    del params
+    torch.cuda.reset_peak_memory_stats(dev)
+    before, ep0, emb0 = (kernels.launch_counts(), dict(moe.EP_CALLS),
+                         pops.EMBED_CALLS)
+    ctx = ModelCtx(mesh=mesh)
+    shard = [_q_run(cfg, ps, toks, dev, ctx, mesh) for _ in range(2)]
+    peak_s = torch.cuda.max_memory_allocated(dev) / 2**30
+    grew = {k: v - before[k] for k, v in kernels.launch_counts().items()
+            if v - before[k]}
+    ep = {k: v - ep0[k] for k, v in moe.EP_CALLS.items() if v - ep0[k]}
+    u, sd = plain[1], shard[1]
+    top = float(u["fwd"].float().abs().max())
+    err_f = max_err(sd["fwd"].float(), u["fwd"].float()) / top
+    err_i = max_err(sd["inc"].float(), u["inc"].float()) \
+        / float(u["inc"].float().abs().max())
+    bit = torch.equal(sd["fwd"], u["fwd"]) and torch.equal(sd["inc"],
+                                                            u["inc"])
+    same = torch.equal(shard[0]["fwd"], shard[1]["fwd"]) and \
+        torch.equal(shard[0]["inc"], shard[1]["inc"])
+    tok = B * P
+    out = dict(arch=arch, why=why, dtype=cfg.dtype, top=top,
+               bit_equal=bool(bit),
+               repeat_equal=bool(same),
+               rel_err_fwd=err_f, rel_err_decode=err_i,
+               prefill_tok_s=(tok / u["prefill_s"], tok / sd["prefill_s"]),
+               decode_ms=(1e3 * u["decode_s"] / S, 1e3 * sd["decode_s"] / S),
+               peak_gib=(peak_u, peak_s), launches=grew, ep_calls=ep,
+               embeds=pops.EMBED_CALLS - emb0,
+               finite=bool(torch.isfinite(sd["inc"]).all()))
+    del ps, plain, shard
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _q_rank(rank: int, world: int, init: str, out: str) -> None:
+    """One NCCL rank of phase q (a spawned process)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import init_group, make_local_mesh
+    init_group(rank, world, init, backend="nccl")
+    dev = torch.device("cuda", rank)
+    mesh = make_local_mesh(world)
+    kernels.reset_launch_counts()
+    res = {"mesh": [list(mesh.mesh_dim_names), list(mesh.shape)],
+           "torch": str(torch.__version__),
+           "models": [_q_model(a, c, w, dev, mesh)
+                      for a, c, w in MESH_MODELS]
+           # over several cards bf16 sums run in other orders: the
+           # models once more in float32, the reference test's dtype
+           + ([_q_model(a, c, w, dev, mesh, "float32")
+               for a, c, w in MESH_F32] if world > 1 else []),
+           "launches": kernels.launch_counts()}
+    if rank == 0:
+        Path(out).write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def phase_q(dev) -> dict:
+    """The sharded forward (``model_fwd``, ``prefill`` and decode steps on
+    DTensors, the MoE's expert-parallel bodies and the WKV kernel under
+    ``local_map``) in one NCCL rank per visible card, held against the
+    unsharded port on the same weights.  Returns the ranks' kernel
+    launches (rank 0's)."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    fresh_card(dev, "q")
+    world = torch.cuda.device_count()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_q_"))
+    t0 = time.perf_counter()
+    try:
+        mp.spawn(_q_rank, args=(world, f"file://{work / 'store'}",
+                                str(work / "q.json")), nprocs=world,
+                 join=True)
+        res = json.loads((work / "q.json").read_text())
+    finally:
+        for f in work.iterdir():
+            f.unlink()
+        work.rmdir()
+    print(f"[q] {world} NCCL rank(s), mesh {res['mesh']}, torch "
+          f"{res['torch']}; {time.perf_counter() - t0:.1f} s with the "
+          f"spawn", flush=True)
+    B, P, S = MESH_RUN
+    for m in res["models"]:
+        print(f"[q] {m['arch']} {m['dtype']} ({m['why']}): batch {B}, "
+              f"prompt {P}, {S} "
+              f"decode steps; sharded vs unsharded: bit-equal "
+              f"{m['bit_equal']}, max |dlogit| / max |logit| forward "
+              f"{m['rel_err_fwd']:.3e}, prefill + decodes "
+              f"{m['rel_err_decode']:.3e}; two sharded runs bit-equal "
+              f"{m['repeat_equal']}; prefill tok/s (unsharded, sharded) "
+              f"({m['prefill_tok_s'][0]:.1f}, {m['prefill_tok_s'][1]:.1f}), "
+              f"decode ms a step ({m['decode_ms'][0]:.2f}, "
+              f"{m['decode_ms'][1]:.2f}), peak GiB "
+              f"({m['peak_gib'][0]:.2f}, {m['peak_gib'][1]:.2f}); sharded "
+              f"launches {m['launches']}, expert-parallel bodies "
+              f"{m['ep_calls']}, sharded embeddings {m['embeds']}",
+              flush=True)
+        moe = m["arch"].startswith("dbrx")
+        if not m["finite"] or not m["repeat_equal"] or m["embeds"] <= 0:
+            raise AssertionError(f"phase q {m['arch']}: {m}")
+        # the sharded math is held at the reference's sharded-test
+        # tolerance on one card and in float32; bf16 over several cards
+        # rounds its partial sums apart and is printed
+        if (world == 1 or m["dtype"] == "float32") and max(
+                m["rel_err_fwd"], m["rel_err_decode"]) > MESH_TOL:
+            raise AssertionError(f"phase q {m['arch']}: sharded differs "
+                                 f"from unsharded: {m}")
+        if moe and m["ep_calls"].get("ep_moe", 0) <= 0:
+            raise AssertionError(f"phase q {m['arch']}: no expert-parallel "
+                                 f"body ran: {m}")
+        # one rank runs every op on whole tensors: the dense models'
+        # logits keep their bits (more ranks sum in other orders)
+        if world == 1 and not moe and not m["bit_equal"]:
+            raise AssertionError(f"phase q {m['arch']}: sharded differs "
+                                 f"from unsharded: {m}")
+        if m["arch"] == RWKV and m["launches"].get("wkv6", 0) <= 0:
+            raise AssertionError("phase q: the WKV kernel did not run under "
+                                 "the mesh")
+    return res["launches"]
+
+
 def phase_f(dev) -> None:
     """Coded serving at smoke size through serve_policy_sweep."""
     from repro_torch import kernels
@@ -3227,6 +3570,7 @@ def main() -> int:
     # phase c holds the parity kernels at its solve
     ds_seed, ds_s = deepseek_coded_seed()
     rows = phase_c(dev, ds_s)
+    decode_route_rows(dev)
     phase_d(dev)
     kernels.reset_launch_counts()
     phase_e(dev)
@@ -3243,7 +3587,9 @@ def main() -> int:
     grads["trees"] = [_tree.map(lambda t: t.cpu(), t)
                       for t in grads["trees"]]
     phase_p(dev, grads["adamw_bytes_per_param"])
-    launches = kernels.launch_counts()
+    q_launches = phase_q(dev)
+    launches = {k: v + q_launches[k]
+                for k, v in kernels.launch_counts().items()}
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"main path never launched {name}")

@@ -1,6 +1,6 @@
 """Model zoo of the port: composable torch LM stacks covering the ten
-assigned archs.  ``ModelCtx`` carries the remat policy; the reference's
-mesh fields wait for the port's parallelism."""
+assigned archs.  ``ModelCtx`` carries the remat policy and the mesh
+fields (``mesh``, ``model_axis``, ``ep_full``, ``a2a_fp8``)."""
 from .config import (ArchConfig, LayerSpec, MLAConfig, MambaConfig,  # noqa
                      MoEConfig, SHAPE_CELLS, ShapeCell, shape_cell)
 from .lm import (ModelCtx, decode_step, init_cache_shapes,  # noqa: F401

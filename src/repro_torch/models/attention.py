@@ -75,6 +75,50 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.permute(0, 3, 1, 2, 4).reshape(B, Tq, Hq, Dv).to(q.dtype)
 
 
+def _put(cache: torch.Tensor, idx: tuple, value: torch.Tensor) -> None:
+    """``cache[idx] = value`` in place (``idx`` () for the whole cache).  A
+    cache under a mesh is a DTensor replicated over it: every rank writes
+    the whole value into its local copy (a sharded index write has no
+    DTensor rule)."""
+    from ..parallel.ops import is_dtensor
+    if is_dtensor(cache):
+        def full(t):
+            return t.full_tensor() if is_dtensor(t) else t
+        cache, value = cache.to_local(), full(value)
+        idx = tuple(full(i) for i in idx)
+    if idx:
+        cache[idx] = value
+    else:
+        cache.copy_(value)
+
+
+def _heads(fn, q, k, v, kv_valid=None):
+    """``fn(q, k, v, kv_valid)``, an attention over heads: q (B, Tq, Hq,
+    D), k / v (B, Tk, Hkv, D), kv_valid (B,) or None.  On DTensors it runs
+    under ``local_map``, heads on the "model" dim when it divides Hq and
+    Hkv (each rank attends with its heads; else every rank computes all
+    heads): attention is per head, and flattening a sharded head dim has
+    no DTensor rule."""
+    from ..parallel.ops import is_dtensor, per_head
+    if not is_dtensor(q):
+        return fn(q, k, v, kv_valid)
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    x_pl = per_head(q, 2, q.shape[2], k.shape[2])
+    kv_pl = None
+    if kv_valid is not None:
+        kv_pl = per_head(q, None)
+        if not is_dtensor(kv_valid):
+            kv_valid = DTensor.from_local(
+                torch.as_tensor(kv_valid, device=q.device).reshape(-1),
+                mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return local_map(fn, out_placements=x_pl,
+                     in_placements=(x_pl, x_pl, x_pl, kv_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, k, v, kv_valid)
+
+
 def _decode_attention(q, k_cache, v_cache, kv_valid, *, scale=None):
     """Single-token attention over a (possibly padded) KV cache.
 
@@ -128,23 +172,26 @@ def apply_gqa(params: dict, x: torch.Tensor, *, cfg: ArchConfig,
     q = rope(q, positions, rope_base)
     k = rope(k, positions, rope_base)
 
+    def attend(q, k, v, _):
+        return flash_attention(q, k, v, causal=True, window=window)
+
     if cache is None:
-        o = flash_attention(q, k, v, causal=True, window=window)
+        o = _heads(attend, q, k, v)
         new_cache = None
     elif T > 1:
         # prefill: attend over the fresh K/V, then fill the cache
-        o = flash_attention(q, k, v, causal=True, window=window)
+        o = _heads(attend, q, k, v)
         k_cache, v_cache = cache["k"], cache["v"]
         S = k_cache.shape[1]
         if T >= S:
             # ring smaller than prompt → keep the tail, aligned so that
             # token p sits in slot p % S
             shift = (T - S) % S
-            k_cache.copy_(torch.roll(k[:, -S:], shift, dims=1))
-            v_cache.copy_(torch.roll(v[:, -S:], shift, dims=1))
+            _put(k_cache, (), torch.roll(k[:, -S:], shift, dims=1))
+            _put(v_cache, (), torch.roll(v[:, -S:], shift, dims=1))
         else:
-            k_cache[:, :T] = k
-            v_cache[:, :T] = v
+            _put(k_cache, (slice(None), slice(0, T)), k)
+            _put(v_cache, (slice(None), slice(0, T)), v)
         kv_valid = torch.clamp(positions[:, -1] + 1, max=S).to(torch.int32)
         new_cache = {"k": k_cache, "v": v_cache, "len": kv_valid}
     else:
@@ -152,11 +199,11 @@ def apply_gqa(params: dict, x: torch.Tensor, *, cfg: ArchConfig,
         S = k_cache.shape[1]
         slot = positions[:, 0] % S
         b = torch.arange(B, device=x.device)
-        k_cache[b, slot] = k[:, 0]
-        v_cache[b, slot] = v[:, 0]
+        _put(k_cache, (b, slot), k[:, 0])
+        _put(v_cache, (b, slot), v[:, 0])
         kv_valid = torch.clamp(positions[:, -1] + 1, max=S).to(torch.int32)
         # the window is the ring's size
-        o = _decode_attention(q, k_cache, v_cache, kv_valid)
+        o = _heads(_decode_attention, q, k_cache, v_cache, kv_valid)
         new_cache = {"k": k_cache, "v": v_cache, "len": kv_valid}
     out = einsum("bthx,hxd->btd", o, params["wo"])
     return out, new_cache
@@ -237,11 +284,12 @@ def apply_mla(params: dict, x: torch.Tensor, *, cfg: ArchConfig,
         v = einsum("btr,rhx->bthx", c_kv, params["wv_b"])
         k = torch.cat([k_nope, k_rope.expand(B, T, H, m.rope_dim)], dim=-1)
         qq = torch.cat([q_nope, q_rope], dim=-1)
-        o = flash_attention(qq, k, v, causal=True, scale=scale)
+        o = _heads(lambda q_, k_, v_, _: flash_attention(
+            q_, k_, v_, causal=True, scale=scale), qq, k, v)
         new_cache = None
         if cache is not None:   # prefill: stash the compressed latents
-            cache["c"][:, :T] = c_kv
-            cache["r"][:, :T] = k_rope[:, :, 0, :]
+            _put(cache["c"], (slice(None), slice(0, T)), c_kv)
+            _put(cache["r"], (slice(None), slice(0, T)), k_rope[:, :, 0, :])
             new_cache = {"c": cache["c"], "r": cache["r"],
                          "len": positions[:, -1] + 1}
     else:
@@ -250,8 +298,8 @@ def apply_mla(params: dict, x: torch.Tensor, *, cfg: ArchConfig,
         c_cache, r_cache = cache["c"], cache["r"]
         b = torch.arange(B, device=x.device)
         slot = positions[:, 0]
-        c_cache[b, slot] = c_kv[:, 0]
-        r_cache[b, slot] = k_rope[:, 0, 0, :]
+        _put(c_cache, (b, slot), c_kv[:, 0])
+        _put(r_cache, (b, slot), k_rope[:, 0, 0, :])
         kv_valid = positions[:, -1] + 1
         s_lat = torch.einsum("bthr,bsr->bhts", q_lat_abs.float(),
                              c_cache.float())
@@ -293,5 +341,6 @@ def apply_cross(params: dict, x: torch.Tensor, enc: torch.Tensor, *,
     q = einsum("btd,dhx->bthx", x, params["wq"])
     k = einsum("btd,dhx->bthx", enc, params["wk"])
     v = einsum("btd,dhx->bthx", enc, params["wv"])
-    o = flash_attention(q, k, v, causal=False)
+    o = _heads(lambda q_, k_, v_, _: flash_attention(q_, k_, v_,
+                                                     causal=False), q, k, v)
     return einsum("bthx,hxd->btd", o, params["wo"])

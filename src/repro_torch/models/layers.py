@@ -11,7 +11,7 @@ import torch.nn.functional as F
 from .config import ArchConfig
 
 __all__ = ["rms_norm", "init_rms", "init_ffn", "apply_ffn",
-           "ffn_weight_names", "init_embedding", "embed", "logits",
+           "ffn_weight_names", "init_embedding", "logits",
            "promote", "einsum"]
 
 
@@ -87,10 +87,6 @@ def init_embedding(gen: torch.Generator, cfg: ArchConfig, dtype,
         p["out"] = _normal(gen, (cfg.d_model, cfg.vocab), dtype, device) \
             / math.sqrt(cfg.d_model)
     return p
-
-
-def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["tok"][tokens]
 
 
 def logits(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:

@@ -10,7 +10,20 @@ encoder-decoder takes ``enc_feats``, a vision model prepends projected
 ``patch_feats`` in ``model_fwd`` (the reference's ``prefill`` has no
 vision branch, so serving is text-only).  DeepSeek's MTP head adds
 ``mtp_logits`` to the full forward.  ``ModelCtx`` carries the training
-forward's activation-checkpointing policy.
+forward's activation-checkpointing policy and the mesh.
+
+Under a mesh (``ModelCtx.mesh``, a ``DeviceMesh`` over ("data", "model")
+or ("pod", "data", "model")) the three entry points run on DTensors: the
+parameters carry the placements of
+:func:`repro_torch.parallel.sharding.param_shardings` (distributed with
+:func:`~repro_torch.parallel.sharding.distribute`), the tokens the
+batch's.  Each layer gathers its FSDP shards on use and keeps its
+tensor-parallel ones (:func:`repro_torch.parallel.ops.gather_on_use`);
+ops propagate their DTensor sharding rules, and the vocab-sharded
+embedding, the MoE's expert-parallel bodies and the WKV kernel run under
+``local_map``.  Decode caches are DTensors replicated over the mesh (a
+cache write into a sharded cache has no in-place DTensor rule).  The
+logits come back as a DTensor (``.full_tensor()`` gathers them).
 
 Three entry points, as in the reference:
   * ``model_fwd``    — full-sequence forward
@@ -26,9 +39,10 @@ seeded ``torch.Generator`` with the reference's shapes, dtypes and scales
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch.utils import checkpoint as _ckpt
@@ -40,6 +54,7 @@ from . import rwkv as rwkv_mod
 from . import ssm as ssm_mod
 from .config import ArchConfig
 from ..device import resolve_device
+from ..parallel import ops as pops
 
 __all__ = ["init_model", "model_fwd", "prefill", "decode_step",
            "init_cache_shapes", "padded_vocab", "torch_dtype", "ModelCtx"]
@@ -47,8 +62,14 @@ __all__ = ["init_model", "model_fwd", "prefill", "decode_step",
 
 @dataclasses.dataclass(frozen=True)
 class ModelCtx:
-    """Context threaded through the forward (the reference's, without the
-    mesh fields, which arrive with the port's parallelism).
+    """Context threaded through the forward: the reference's fields (the
+    remat policy first, so ``ModelCtx("dots")`` names it).
+
+    ``mesh``: the DeviceMesh the forward is sharded over (None: one
+    device); ``model_axis`` its tensor-parallel dim.  ``ep_full``: shard
+    MoE experts over the data dims too (full-mesh expert parallelism;
+    requires num_experts % dp == 0).  ``a2a_fp8``: float8 MoE dispatch
+    payloads under ``ep_full``.
 
     ``remat_policy`` says what a training forward keeps of each repeat of
     the block for the backward: ``"full"`` recomputes the whole repeat
@@ -58,6 +79,10 @@ class ModelCtx:
     own option).  Remat applies only where autograd records and there
     are no caches; the gradients are the same under every policy."""
     remat_policy: str = "full"   # "full" | "dots" | "none"
+    mesh: Optional[Any] = None
+    model_axis: str = "model"
+    ep_full: bool = False
+    a2a_fp8: bool = False
 
 
 def padded_vocab(cfg: ArchConfig, mult: int = 512) -> int:
@@ -156,7 +181,15 @@ def _at(tree, r: int):
 
 
 def _apply_layer(p: dict, x, *, cfg: ArchConfig, spec, positions=None,
-                 cache=None, enc_out=None):
+                 cache=None, enc_out=None, ctx: ModelCtx = ModelCtx()):
+    if ctx.mesh is not None:
+        # FSDP: gather the data-dim shards on use; a MoE layer's experts
+        # are placed by its expert-parallel body
+        experts = ("w_in", "w_gate", "w_out") if spec.ffn == "moe" else ()
+        p = {k: pops.gather_on_use(v, ctx.model_axis,
+                                   skip=experts if k == "ffn" else ())
+             for k, v in p.items()}
+        x = pops.settle(x, ctx.model_axis)
     h = ly.rms_norm(x, p["norm1"], cfg.norm_eps)
     mixer_cache = cache.get("mixer") if cache else None
     if spec.mixer == "attn":
@@ -184,9 +217,13 @@ def _apply_layer(p: dict, x, *, cfg: ArchConfig, spec, positions=None,
         hx = ly.rms_norm(x, p["norm_x"], cfg.norm_eps)
         x = x + attn.apply_cross(p["cross"], hx, enc_out, cfg=cfg)
 
+    if ctx.mesh is not None:
+        x = pops.settle(x, ctx.model_axis)
     h2 = ly.rms_norm(x, p["norm2"], cfg.norm_eps)
     if spec.ffn == "moe":
-        fo = moe_mod.apply_moe(p["ffn"], h2, cfg=cfg)
+        fo = moe_mod.apply_moe(p["ffn"], h2, cfg=cfg, mesh=ctx.mesh,
+                               model_axis=ctx.model_axis,
+                               ep_full=ctx.ep_full, a2a_fp8=ctx.a2a_fp8)
     elif spec.mixer == "rwkv":
         # the channel-mix carries its token shift in the time-mix's cache
         fo, new_mc = rwkv_mod.apply_rwkv_cmix(p["ffn"], h2, cache=new_mc)
@@ -230,9 +267,12 @@ def _remat(fn, x, policy: str):
 
 def _run_blocks(blocks, x, *, cfg: ArchConfig, specs, n_repeats: int,
                 positions=None, caches=None, enc_out=None,
-                ctx: ModelCtx = ModelCtx()):
+                ctx: ModelCtx = ModelCtx(),
+                hiddens: Optional[List[torch.Tensor]] = None):
     """The ``n_repeats`` repeats of ``specs``.  A training forward (grad
-    mode on, no caches) runs each repeat under ``ctx.remat_policy``."""
+    mode on, no caches) runs each repeat under ``ctx.remat_policy``.
+    ``hiddens``, when given, receives every layer's post-residual state
+    in order (repeat by repeat, layer by layer)."""
     remat = caches is None and torch.is_grad_enabled() \
         and ctx.remat_policy != "none"
 
@@ -242,9 +282,11 @@ def _run_blocks(blocks, x, *, cfg: ArchConfig, specs, n_repeats: int,
             c = _at(caches[name], r) if caches is not None else None
             x, new_mc = _apply_layer(_at(blocks[name], r), x, cfg=cfg,
                                      spec=spec, positions=positions,
-                                     cache=c, enc_out=enc_out)
+                                     cache=c, enc_out=enc_out, ctx=ctx)
             if c is not None:
                 _store(c, new_mc)
+            if hiddens is not None:
+                hiddens.append(x)
         return x
 
     for r in range(n_repeats):
@@ -254,28 +296,71 @@ def _run_blocks(blocks, x, *, cfg: ArchConfig, specs, n_repeats: int,
 
 
 def _trunk(params, x, *, cfg: ArchConfig, positions, caches=None,
-           enc_out=None, ctx: ModelCtx = ModelCtx()):
+           enc_out=None, ctx: ModelCtx = ModelCtx(),
+           hiddens: Optional[List[torch.Tensor]] = None):
     """The prefix layers, the repeated blocks, the final norm.  Every
-    cache leaf updates in place."""
+    cache leaf updates in place.  ``hiddens``, when given, receives every
+    layer's post-residual state (B, T, d), before the final norm: the
+    prefix layers, then the repeats — the reference's ``collect_layers``
+    list."""
     if cfg.prefix:
         pc = caches.get("prefix") if caches else None
         for i, spec in enumerate(cfg.prefix):
             c = pc[i] if pc is not None else None
             x, new_mc = _apply_layer(params["prefix"][i], x, cfg=cfg,
                                      spec=spec, positions=positions,
-                                     cache=c, enc_out=enc_out)
+                                     cache=c, enc_out=enc_out, ctx=ctx)
             if c is not None:
                 _store(c, new_mc)
+            if hiddens is not None:
+                hiddens.append(x)
     x = _run_blocks(params["blocks"], x, cfg=cfg, specs=cfg.block,
                     n_repeats=cfg.n_repeats, positions=positions,
                     caches=caches.get("blocks") if caches else None,
-                    enc_out=enc_out, ctx=ctx)
+                    enc_out=enc_out, ctx=ctx, hiddens=hiddens)
     return ly.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def _head(params, x, cfg: ArchConfig):
-    return ly.logits(params["embed"], x,
+def _head(params, x, cfg: ArchConfig, ctx: ModelCtx = ModelCtx()):
+    embed = params["embed"]
+    if ctx.mesh is not None:
+        embed = pops.gather_on_use(embed, ctx.model_axis)
+        x = pops.settle(x, ctx.model_axis)
+    return ly.logits(embed, x,
                      dataclasses.replace(cfg, vocab=padded_vocab(cfg)))
+
+
+def _embed(params, tokens, ctx: ModelCtx):
+    """The token embedding: vocab-sharded under a mesh
+    (:func:`repro_torch.parallel.ops.sharded_embed`)."""
+    return pops.sharded_embed(params["embed"]["tok"], tokens, ctx.mesh,
+                              ctx.model_axis)
+
+
+def _proj(params, name: str, ctx: ModelCtx):
+    """A frontend or MTP projection, its FSDP shards gathered on use."""
+    p = params[name]
+    return pops.gather_on_use(p, ctx.model_axis) if ctx.mesh is not None \
+        else p
+
+
+def _on_mesh(tokens, ctx: ModelCtx):
+    """(tokens, the context the forward runs in).  Under a mesh: the
+    tokens as a DTensor sharded on the batch over the data dims when it
+    divides (:func:`~repro_torch.parallel.sharding.batch_sharding`), and
+    ``implicit_replication`` so plain tensors built inside the forward
+    (positions, masks) join DTensor ops as replicated."""
+    if ctx.mesh is None:
+        return tokens, contextlib.nullcontext()
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from ..parallel import sharding as sh
+    if not pops.is_dtensor(tokens):
+        spec = sh.batch_sharding(ctx.mesh, tuple(tokens.shape))
+        tokens = distribute_tensor(tokens, ctx.mesh,
+                                   sh.placements(spec, ctx.mesh),
+                                   src_data_rank=None)
+    return tokens, implicit_replication()
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +369,8 @@ def _head(params, x, cfg: ArchConfig):
 
 def _encoder(params, feats, *, cfg: ArchConfig,
              ctx: ModelCtx = ModelCtx()):
-    x = ly.einsum("btf,fd->btd", feats, params["frontend"]["proj"])
+    x = ly.einsum("btf,fd->btd", feats,
+                  _proj(params, "frontend", ctx)["proj"])
     x = _run_blocks(params["enc_blocks"], x, cfg=cfg, specs=cfg.enc_block,
                     n_repeats=cfg.n_enc_repeats, ctx=ctx)
     return ly.rms_norm(x, params["enc_norm"], cfg.norm_eps)
@@ -301,16 +387,21 @@ def model_fwd(params, batch: Dict[str, torch.Tensor], *,
 
     batch: tokens (B, T); audio/enc feats (B, Ts, F) for enc-dec; patch
     feats (B, P, F) for VLM prefix conditioning."""
-    tokens = batch["tokens"]
+    tokens, scope = _on_mesh(batch["tokens"], ctx)
+    with scope:
+        return _model_fwd(params, batch, tokens, cfg=cfg, ctx=ctx)
+
+
+def _model_fwd(params, batch, tokens, *, cfg: ArchConfig, ctx: ModelCtx):
     B, T = tokens.shape
-    x = ly.embed(params["embed"], tokens)
+    x = _embed(params, tokens, ctx)
     enc_out = None
     n_prefix_tokens = 0
     if cfg.enc_dec:
         enc_out = _encoder(params, batch["enc_feats"], cfg=cfg, ctx=ctx)
     elif cfg.frontend == "vision":
         pre = ly.einsum("bpf,fd->bpd", batch["patch_feats"],
-                        params["frontend"]["proj"])
+                        _proj(params, "frontend", ctx)["proj"])
         n_prefix_tokens = pre.shape[1]
         x = torch.cat(ly.promote(pre, x), dim=1)
     x = _trunk(params, x, cfg=cfg,
@@ -318,13 +409,14 @@ def model_fwd(params, batch: Dict[str, torch.Tensor], *,
                enc_out=enc_out, ctx=ctx)
     if n_prefix_tokens:
         x = x[:, n_prefix_tokens:]
-    out = {"logits": _head(params, x, cfg)}
+    out = {"logits": _head(params, x, cfg, ctx)}
     if cfg.mtp:
+        mtp = _proj(params, "mtp", ctx)
         nxt = torch.cat([x[:, 1:], x[:, -1:]], dim=1)
-        h = torch.cat([ly.rms_norm(x, params["mtp"]["norm"], cfg.norm_eps),
+        h = torch.cat([ly.rms_norm(x, mtp["norm"], cfg.norm_eps),
                        nxt], dim=-1)
-        h = ly.einsum("bte,ed->btd", h, params["mtp"]["proj"])
-        out["mtp_logits"] = _head(params, h, cfg)
+        h = ly.einsum("bte,ed->btd", h, mtp["proj"])
+        out["mtp_logits"] = _head(params, h, cfg, ctx)
     return out
 
 
@@ -361,7 +453,8 @@ def init_cache_shapes(cfg: ArchConfig, batch: int, max_len: int
 
 
 def prefill(params, batch, caches, *, cfg: ArchConfig,
-            return_hidden: bool = False):
+            ctx: ModelCtx = ModelCtx(), return_hidden: bool = False,
+            collect_layers: bool = False):
     """Process the prompt, fill the cache, return last-position logits.
 
     batch: tokens (B, T), and enc feats (B, Ts, F) for enc-dec (the
@@ -369,34 +462,52 @@ def prefill(params, batch, caches, *, cfg: ArchConfig,
     ``return_hidden`` additionally returns the final-norm hidden state of
     the last position (B, 1, d_model) — the input of the output-head
     matmul, which coded serving executes as a distributed MDS-coded
-    product instead of the local head contraction."""
-    tokens = batch["tokens"]
-    B, T = tokens.shape
-    x = ly.embed(params["embed"], tokens)
-    enc_out = _encoder(params, batch["enc_feats"], cfg=cfg) \
-        if cfg.enc_dec else None
-    x = _trunk(params, x, cfg=cfg, positions=_positions(B, T, tokens.device),
-               caches=caches, enc_out=enc_out)
-    hidden = x[:, -1:]
-    result = (_head(params, hidden, cfg), caches)
+    product instead of the local head contraction.
+
+    ``collect_layers`` appends one more output: the list of per-layer
+    post-residual hidden states (B, T, d_model), prefix layers first, then
+    the repeats, before the final norm — the activations feeding each
+    layer's matmuls, which trunk-scope coded serving distributes (and
+    which its tests compare layer by layer)."""
+    tokens, scope = _on_mesh(batch["tokens"], ctx)
+    with scope:
+        B, T = tokens.shape
+        x = _embed(params, tokens, ctx)
+        enc_out = _encoder(params, batch["enc_feats"], cfg=cfg, ctx=ctx) \
+            if cfg.enc_dec else None
+        hiddens = [] if collect_layers else None
+        x = _trunk(params, x, cfg=cfg,
+                   positions=_positions(B, T, tokens.device), caches=caches,
+                   enc_out=enc_out, ctx=ctx, hiddens=hiddens)
+        hidden = x[:, -1:]
+        result = (_head(params, hidden, cfg, ctx), caches)
     if return_hidden:
         result += (hidden,)
+    if collect_layers:
+        result += (hiddens,)
     return result
 
 
 def decode_step(params, tokens, pos, caches, *, cfg: ArchConfig,
-                enc_out=None, return_hidden: bool = False):
+                ctx: ModelCtx = ModelCtx(), enc_out=None,
+                return_hidden: bool = False, collect_layers: bool = False):
     """One decode step.  tokens (B, 1), pos (B,) absolute positions;
     ``enc_out`` (B, Ts, d) feeds an encoder-decoder's cross-attention
     (without it the step skips cross-attention, as the reference's serving
     loop does).
 
     ``return_hidden`` additionally returns the final-norm hidden state
-    (B, 1, d_model) feeding the output head."""
-    x = ly.embed(params["embed"], tokens)
-    x = _trunk(params, x, cfg=cfg, positions=pos[:, None], caches=caches,
-               enc_out=enc_out)
-    result = (_head(params, x, cfg), caches)
+    (B, 1, d_model) feeding the output head; ``collect_layers`` the
+    per-layer hidden states (see :func:`prefill`)."""
+    tokens, scope = _on_mesh(tokens, ctx)
+    with scope:
+        x = _embed(params, tokens, ctx)
+        hiddens = [] if collect_layers else None
+        x = _trunk(params, x, cfg=cfg, positions=pos[:, None],
+                   caches=caches, enc_out=enc_out, ctx=ctx, hiddens=hiddens)
+        result = (_head(params, x, cfg, ctx), caches)
     if return_hidden:
         result += (x,)
+    if collect_layers:
+        result += (hiddens,)
     return result

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..parallel import ops as pops
 from .config import ArchConfig
 from .layers import _normal, rms_norm
 
@@ -66,6 +67,26 @@ def _token_shift(x: torch.Tensor, last: Optional[torch.Tensor]):
     return torch.cat([last, x[:, :-1]], dim=1)
 
 
+def _wkv(r, k, v, w, u, state):
+    """:func:`repro_torch.kernels.ops.wkv6_heads`; on DTensors under
+    ``local_map`` with the heads (dim 1; u's dim 0) on the "model" dim
+    when it divides them: the WKV is per head, so every rank runs the
+    kernel on its heads."""
+    if not pops.is_dtensor(r):
+        return ops.wkv6_heads(r, k, v, w, u, state)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    x_pl = pops.per_head(r, 1, r.shape[1])
+    # u (H, K): its heads where r's are, whole over the data dims
+    u_pl = [Shard(0) if a == "model" and isinstance(p, Shard)
+            else Replicate()
+            for a, p in zip(r.device_mesh.mesh_dim_names, x_pl)]
+    in_pl = (x_pl, x_pl, x_pl, x_pl, u_pl, None if state is None else x_pl)
+    return local_map(ops.wkv6_heads, out_placements=(x_pl, x_pl),
+                     in_placements=in_pl, device_mesh=r.device_mesh,
+                     redistribute_inputs=True)(r, k, v, w, u, state)
+
+
 def apply_rwkv_tmix(params: dict, x: torch.Tensor, *, cfg: ArchConfig,
                     cache: Optional[dict] = None
                     ) -> Tuple[torch.Tensor, Optional[dict]]:
@@ -91,8 +112,8 @@ def apply_rwkv_tmix(params: dict, x: torch.Tensor, *, cfg: ArchConfig,
     # prefill starts from zeros (as the reference does); decode continues
     # the cached state
     state = cache["wkv"] if cache is not None and T == 1 else None
-    o, S = ops.wkv6_heads(heads(r), heads(k), heads(v),
-                          heads(w.to(x.dtype)), u, state)
+    o, S = _wkv(heads(r), heads(k), heads(v), heads(w.to(x.dtype)), u,
+                state)
     new_cache = None
     if cache is not None:
         new_cache = {"wkv": S.to(cache["wkv"].dtype), "shift_t": x[:, -1],

@@ -1,6 +1,5 @@
-"""Heterogeneous shard splits (``repro_torch.parallel.hetero``) and the
-training loss's single-device ``token_nll`` (``parallel.ops``).
-
-The mesh sharding layer (``repro.parallel.sharding``, ``sharded_embed``)
-is not ported yet."""
+"""Heterogeneous shard splits (``repro_torch.parallel.hetero``), the
+sharding rules (``parallel.sharding``) and the sharded forward's ops
+(``parallel.ops``: ``sharded_embed``, the ``local_map`` bodies'
+collectives, ``token_nll``)."""
 from .hetero import hetero_split, replan_on_failure  # noqa: F401

@@ -39,7 +39,12 @@ term ``R[par, known] @ y_known`` by the parity-contraction kernel, which
 derives the known-column entries in registers — at llama3.2-1b's head (L
 = 128 512, a ~56k-row solve) the dense parity rows (s × L) and the
 known-column block (s × (L − s)) would each take tens of GB and are never
-formed.  The numpy
+formed.  The minor (s × s) is LU-factored in place in float64 while its
+8 s² bytes fit the card (:func:`minor_route`); past that it is factored in
+float32 (4 s² bytes; its entries are float32 values, so the copy is
+exact) and each solve is refined in float64 against the minor's float64
+product from the contraction kernel (:func:`refine_solve`) — a decode the
+card holds up to s ≈ 140k parity rows instead of ≈ 95k.  The numpy
 engine derives the same two blocks column-restricted on the host
 (:class:`_DecodeGroup`), bit-identical to slicing the dense rows.
 
@@ -52,8 +57,10 @@ every token.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import weakref
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -76,6 +83,123 @@ DECODE_CHUNK = 1 << 28
 #: the ``decode`` stage span, so outside the stage categories that tile a
 #: step
 _SPLIT = "decode_split"
+#: bytes a parity minor may take on the card; None: the card's free
+#: memory, less :data:`MINOR_MARGIN`, when the minor is factored (tests
+#: lower it to send a small minor down the refined route)
+MINOR_BUDGET = None
+#: what the budget leaves free for the factorisation's workspace and the
+#: decode's other buffers
+MINOR_MARGIN = 4 << 30
+#: the refined route's sweeps before it gives up (LAPACK dsgesv's ITERMAX)
+REFINE_SWEEPS = 30
+#: minors factored and refined solves run, by route, and the sweeps of
+#: each refined solve (the smoke run prints them)
+ROUTES = {"float64": 0, "refined": 0}
+SWEEPS: List[int] = []
+#: cached factors released to make room for another minor (a released
+#: member refactors from its counters on its next solve)
+RELEASED: List[int] = []
+#: members holding factors, least recently used first
+_FACTORED: "collections.OrderedDict[int, weakref.ref]" = \
+    collections.OrderedDict()
+
+
+def _factored(device, keep=None) -> list:
+    """The live members other than ``keep`` holding factors on
+    ``device``, least recently used first."""
+    out = []
+    for key, ref in list(_FACTORED.items()):
+        m = ref()
+        if m is None or m.lu is None:
+            del _FACTORED[key]
+        elif m is not keep and m.lu[0].device == device:
+            out.append(m)
+    return out
+
+
+def _nbytes(m) -> int:
+    return m.lu[0].numel() * m.lu[0].element_size()
+
+
+def _free(device) -> int:
+    """Bytes free on the card for a minor: the allocator's cached blocks
+    returned first (a freed minor of another plan stays cached in them)."""
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info(device)[0] - MINOR_MARGIN
+
+
+def _make_room(need: int, device, keep) -> None:
+    """Release other members' cached factors, least recently used first,
+    until ``need`` bytes are free on the card."""
+    for m in _factored(device, keep):
+        if _free(device) >= need:
+            return
+        RELEASED.append(_nbytes(m))
+        m.lu = None
+        torch.cuda.empty_cache()
+
+
+def minor_route(n: int, device: torch.device, keep=None) -> str:
+    """The decode route of an (n, n) parity minor, by its size alone:
+    ``"float64"`` (an in-place float64 LU) while 8 n² bytes fit the
+    budget, else ``"refined"`` (a float32 LU, refined in float64) while 4
+    n² bytes do; else a ``MemoryError`` that states n and the bytes.  The
+    budget is :data:`MINOR_BUDGET`, or the card's free memory less
+    :data:`MINOR_MARGIN` plus what the cached factors of members other
+    than ``keep`` hold, which a factorisation releases when it needs the
+    room (unbounded on the CPU)."""
+    if MINOR_BUDGET is not None:
+        budget = MINOR_BUDGET
+    elif device.type == "cuda":
+        budget = _free(device) + sum(_nbytes(m)
+                                     for m in _factored(device, keep))
+    else:
+        budget = float("inf")
+    if 8 * n * n <= budget:
+        return "float64"
+    if 4 * n * n <= budget:
+        return "refined"
+    held = f" ({torch.cuda.memory_allocated(device)} allocated)" \
+        if device.type == "cuda" else ""
+    raise MemoryError(
+        f"a parity minor of s = {n} rows needs {8 * n * n} bytes in float64 "
+        f"or {4 * n * n} in float32; the card holds {int(budget)}{held}")
+
+
+def refine_solve(fac, b: torch.Tensor, matvec, anorm: float
+                 ) -> Tuple[torch.Tensor, int]:
+    """Solve A z = b in float64 from float32 LU factors ``fac`` of A by
+    iterative refinement: z from the factors, then per sweep the float64
+    residual r = b - ``matvec(z)`` (A @ z in float64), a float32 solve for
+    the correction d and z += d.  It stops when every column's residual
+    satisfies ‖r‖∞ ≤ √n · u · ‖A‖∞ · ‖z‖∞ (u the float64 unit roundoff,
+    ``anorm`` = ‖A‖∞; LAPACK dsgesv's test: z's backward error is then a
+    small multiple of u, as an LU in float64 would give), and raises
+    ``LinAlgError`` when a value is not finite or :data:`REFINE_SWEEPS`
+    sweeps do not get there (A too ill-conditioned for float32 factors).
+    ``b`` (n, C) float64 → (z (n, C) float64, sweeps run)."""
+    n = b.shape[0]
+    tol = n ** 0.5 * float(torch.finfo(torch.float64).eps) / 2 * anorm
+
+    def correction(r):
+        # scaled into float32's range column by column
+        s = r.abs().amax(dim=0, keepdim=True).clamp(min=1e-300)
+        return bk.lu_solve_torch(fac, (r / s).float()).double() * s
+
+    z = correction(b)
+    for sweep in range(REFINE_SWEEPS + 1):
+        r = b - matvec(z)
+        rn = r.abs().amax(dim=0)
+        if not bool(torch.isfinite(rn).all()):
+            raise np.linalg.LinAlgError("refined decode: non-finite residual")
+        if bool((rn <= tol * z.abs().amax(dim=0)).all()):
+            return z, sweep
+        if sweep < REFINE_SWEEPS:
+            z = z + correction(r)
+    raise np.linalg.LinAlgError(
+        f"refined decode: no convergence in {REFINE_SWEEPS} sweeps (residual "
+        f"{float(rn.max()):.3e}, bound {tol * float(z.abs().max()):.3e}): the "
+        f"minor is too ill-conditioned for float32 factors")
 
 
 @dataclasses.dataclass
@@ -303,7 +427,7 @@ class _DeviceMember:
     :class:`_DeviceDecodeGroup`)."""
 
     __slots__ = ("lin", "sys_pos", "par_pos", "sys_rows", "unk", "ctrs",
-                 "lu", "checked")
+                 "lu", "checked", "route", "anorm", "__weakref__")
 
     def __init__(self, lin: CodedLinear, r: np.ndarray):
         dev = lin.device
@@ -318,24 +442,41 @@ class _DeviceMember:
         self.ctrs = t(lin.parity_ctrs(r[par_pos] - lin.L))
         self.lu = None
         self.checked = False
+        self.route = None
+        self.anorm = 0.0
 
-    def factor(self) -> None:
-        """Build the (s, s) unknown-column minor in float64, column-major,
-        and LU-factor it in place (one float64 copy of the minor); its
+    def factor(self, route: str = None) -> None:
+        """Build the (s, s) unknown-column minor, column-major, and
+        LU-factor it in place — in float64, or in float32 on the refined
+        route (:func:`minor_route`; one copy of the minor either way); its
         rows come from the counter-rows kernel in chunks of ≤
         :data:`DECODE_CHUNK` entries."""
         from ..kernels import ops
         n = self.ctrs.numel()
-        A = torch.empty((n, n), dtype=torch.float64,
-                        device=self.ctrs.device).mT
+        dev = self.ctrs.device
+        self.route = route or minor_route(n, dev, keep=self)
+        refined = self.route == "refined"
+        if dev.type == "cuda" and MINOR_BUDGET is None:
+            _make_room((4 if refined else 8) * n * n, dev, keep=self)
+        A = torch.empty((n, n), dtype=torch.float32 if refined
+                        else torch.float64, device=dev).mT
+        rowsum = torch.zeros(n, dtype=torch.float64, device=dev)
         step = max(1, DECODE_CHUNK // n)
-        with device_span("decode:minor", cat=_SPLIT) as fence:
+        with device_span("decode:minor", cat=_SPLIT,
+                         args={"route": self.route}) as fence:
             for i in range(0, n, step):
-                A[i:i + step] = ops.counter_parity_rows(
+                rows = ops.counter_parity_rows(
                     self.lin.pkey, self.lin.L, self.ctrs[i:i + step],
                     cols=self.unk)
+                A[i:i + step] = rows
+                if refined:
+                    rowsum[i:i + step] = rows.abs().sum(1, dtype=torch.float64)
+                del rows
             fence(A)
+        self.anorm = float(rowsum.max())
         self.lu = bk.lu_factor_torch(A)
+        ROUTES[self.route] += 1
+        _FACTORED[id(self)] = weakref.ref(self)
 
     def known_term(self, sys_y: torch.Tensor) -> torch.Tensor:
         """``R[par, known] @ y_known`` with float64 accumulation, in one
@@ -346,19 +487,38 @@ class _DeviceMember:
                                    sys_y, cols=self.sys_rows,
                                    chunk=DECODE_CHUNK)
 
+    def _minor_product(self, z: torch.Tensor) -> torch.Tensor:
+        """``R[par, unk] @ z`` in float64 from the counters (the minor's
+        float64 product, in one kernel on the card)."""
+        from ..kernels import ops
+        return ops.parity_contract(self.lin.pkey, self.lin.L, self.ctrs,
+                                   z.contiguous(), cols=self.unk,
+                                   chunk=DECODE_CHUNK)
+
     def solve(self, y0: torch.Tensor, z0: torch.Tensor) -> None:
+        if id(self) in _FACTORED:
+            _FACTORED.move_to_end(id(self))     # most recently used
         sys_y = y0[self.sys_pos]
         with device_span("decode:known_term", cat=_SPLIT,
                          args={"rows": int(self.ctrs.numel()),
                                "cols": int(self.sys_rows.numel())}) as fence:
             rhs = y0[self.par_pos] - fence(self.known_term(sys_y))
         if self.lu is None:
+            n = int(self.ctrs.numel())
+            route = minor_route(n, self.ctrs.device, keep=self)
             with device_span("decode:factor", cat=_SPLIT,
-                             args={"n": int(self.ctrs.numel())}) as fence:
-                self.factor()
+                             args={"n": n, "route": route}) as fence:
+                self.factor(route)
                 fence(self.lu)
-        with device_span("decode:lu_solve", cat=_SPLIT) as fence:
-            sol = fence(bk.lu_solve_torch(self.lu, rhs))
+        with device_span("decode:lu_solve", cat=_SPLIT,
+                         args={"route": self.route}) as fence:
+            if self.route == "refined":
+                sol, sweeps = refine_solve(
+                    self.lu, rhs, self._minor_product, self.anorm)
+                SWEEPS.append(sweeps)
+            else:
+                sol = bk.lu_solve_torch(self.lu, rhs)
+            fence(sol)
         if not self.checked:
             if not bool(torch.isfinite(sol).all()):
                 raise np.linalg.LinAlgError("Singular matrix")
@@ -375,7 +535,8 @@ class DeviceRowsDecode:
     dense (s, L) float64 block on the host (tens of GB at an output head's
     L).  The same substitution solve the batched engine runs
     (:class:`_DeviceMember`: the minor from the counter-rows kernel, the
-    known term from the contraction kernel, a float64 LU); a prefix of
+    known term from the contraction kernel, a float64 LU or a refined
+    float32 one); a prefix of
     systematic rows alone is a scatter.  ``apply`` takes and returns the
     host (1, L[, C]) layout of :meth:`DecodePlan.apply`."""
 
@@ -425,7 +586,9 @@ class _DeviceDecodeGroup:
 
     Each member's unknown-column minor ``R[par, unk]`` is derived by the
     counter-rows kernel in row chunks into one column-major float64
-    buffer and LU-factored in place on first use (once per frozen plan);
+    buffer (float32 on the refined route, :func:`minor_route`) and
+    LU-factored in place on first use (once per frozen plan, again if
+    its factors were released to make room for another minor);
     each step contracts the known-column entries against the pinned values
     in float64 in one kernel per 8 columns — neither the dense parity rows
     nor the known-column block ever exists."""

@@ -530,7 +530,7 @@ class StackedLU:
 
 
 def lu_factor_torch(A: torch.Tensor):
-    """``(LU, pivots)`` of a float64 (…, n, n) tensor via
+    """``(LU, pivots)`` of a float64 or float32 (…, n, n) tensor via
     ``torch.linalg.lu_factor_ex``.
 
     When ``A`` is column-major in its last two dims (``A.mT`` contiguous)
