@@ -124,6 +124,21 @@ exits non-zero):
      bit; over several cards the bf16 errors printed and the three held
      in float32, dbrx at 2 layers; two sharded runs bit-equal), with
      prefill tokens/s and peak memory beside the unsharded run's;
+  r. the analysis tools (after the launch counts are read): r1, the
+     dry-run of five production cells (llama3.2-1b train_4k, prefill_32k
+     and decode_32k and rwkv6-7b long_500k over 16 x 16 fake ranks,
+     deepseek-v3-671b decode_32k over 2 x 16 x 16) on fake CUDA tensors,
+     each in a process of its own on the host, started first: their
+     roofline terms at one H100's constants, bottleneck, a rank's peak
+     GiB, useful ratio and wall time, gated on no allocation on the card
+     while tracing; r2, meanwhile on the card, the roofline of phase o's step,
+     phase d's prefill and decode step and phase p's step (the analytic
+     estimate at MeshDesc(1, 1) and the fake trace's) against their
+     measured medians, with mfu, gated on phase o's step: the fake
+     trace's FLOPs equal FlopCounterMode's over the same step run for
+     real, its peak within 20% of that step's max_memory_allocated; r3,
+     the card's bf16 matmul rate at 8192^3 and a 4 GiB copy's bandwidth
+     beside the cited peaks;
   i. one JSON line with every kernel's numbers and its launches on the
      main path (phases e to q, counts reset just before e, phase q's
      ranks' added; ``wkv6``'s
@@ -323,6 +338,22 @@ MESH_RUN = (4, 32, 3)
 #: phase q's gate, x max |logit| (the reference's sharded test's); on one
 #: card the dense models must also be bit-equal
 MESH_TOL = 5e-3
+#: phase r1: production cells (arch, shape cell, two pods) traced on fake
+#: CUDA tensors over torch's fake process group of 256 / 512 ranks, each
+#: in a process of its own, all started together (the traces run on the
+#: host: the card holds no tensor of theirs)
+R1_CELLS = (("llama3.2-1b", "train_4k", False),
+            ("llama3.2-1b", "prefill_32k", False),
+            ("llama3.2-1b", "decode_32k", False),
+            ("rwkv6-7b", "long_500k", False),
+            ("deepseek-v3-671b", "decode_32k", True))
+R1_TIMEOUT = 600
+#: phase r2's gate: the fake trace's peak bytes against the real step's
+#: ``max_memory_allocated``, relative
+R2_PEAK_TOL = 0.2
+#: phase r3: the bf16 matmul's side and the device-to-device copy's bytes
+R3_MATMUL = 8192
+R3_COPY_BYTES = 4 * 2**30
 
 
 def card_line() -> str:
@@ -1384,23 +1415,18 @@ def _wkv6_inputs(dev, B: int, T: int, dtype, lo=None, hi=None,
 def _wkv6_bound(B: int, T: int, esz: int, state: bool) -> tuple:
     """Least time of one WKV call: each input read once (r, k, v, w, u,
     and S_0 when given), each output written once (o, S_T); and the
-    operations of the route wkv6_plan gives T.  The decode step (T <= 1)
-    runs about 6 K V float32 operations per (b, h) outside the tensor
-    cores.  The chunked route (T > 1) runs its two K x V products a step,
-    the carry-in (r ⊙ F) S and the state update (k ⊙ G)ᵀ v, 2 K V
-    operations each, on the TF32 tensor cores, once for each product its
-    precision route takes: the state update two for bf16 inputs (v exact,
-    the float32 factor split) and three for float32, the output products
-    one for bf16 and three for float32.  The chunk's strict-causal
-    products and the FMA-pipe work are left out, so this stays a lower
-    bound."""
+    operations of the route wkv6_plan gives T at their pipe's peak
+    (``plan.wkv6_ops``: the decode's 6 K V float32 operations per (b, h)
+    outside the tensor cores, the chunked route's K x V products on the
+    TF32 tensor cores once for each product its precision route takes --
+    the count the WKV's FLOP formula credits too)."""
+    from repro_torch.kernels.plan import wkv6_ops
     BH, K = B * WKV_H, WKV_K
     nbytes = (esz * 4 * BH * T * K + 4 * WKV_H * K + esz * BH * T * K
               + 4 * BH * K * K * (2 if state else 1))
-    if T <= 1:
-        return bound(nbytes, [6.0 * BH * T * K * K / F32_FLOP_PER_S])
-    products = 2 + 1 if esz == 2 else 3 + 3
-    return bound(nbytes, [2.0 * products * BH * T * K * K / TF32_FLOP_PER_S])
+    ops, pipe = wkv6_ops(T, K, K, BH, esz)
+    return bound(nbytes, [ops / (F32_FLOP_PER_S if pipe == "fp32"
+                                 else TF32_FLOP_PER_S)])
 
 
 #: phase c's wkv6 decay sweeps (lo, hi, every n-th step exactly 0):
@@ -1618,36 +1644,19 @@ def _wkv6_bwd_bound(B: int, T: int, esz: int, chunk: int, H: int = None,
     """Least time of one backward call on its two-level route (csrc/
     wkv6_bwd.cu).  Bytes: r, k, v, w, do read and dr, dk, dv, dw written
     in the input type, u, dS_T read and du, dS_0 written in float32 (no
-    S_0: the train path starts from zeros).  Operations, per (bh, t) in
-    units of K V, each on the pipe the route runs it on:
-
-    * on the TF32 tensor cores, 2 operations a product term, once for each
-      product its precision route takes (the kernel's NPS, NPX, NPB: a
-      float32 factor split into head + tail takes 2 against an exact bf16
-      operand, 3 against a float32 one; two bf16 operands 1): level 1's
-      state updates of S and D, 2 K V each, 2 / 3 products (bf16 / f32);
-      level 2's X = S_c dOᵀ and Y = D_e Vᵀ, 2 K V each, 2 / 3; Z = (K ⊙ G)
-      D_e, 2 K V, 3 (both float32); B = dO Vᵀ, 2 chunk V, 1 / 3; dv's
-      (A + diag)ᵀ dO, 2 chunk V, 2 / 3;
-    * on the FMA pipe at the FP32 rate, the direct dw walk: S stepped
-      forward, D stepped backward and Σ_v S ⊙ D, 2 K V each (its
-      recomputation of S from the checkpoints not counted).
-
-    The two pipes run side by side, so each is a term of its own.  The
-    in-chunk pairs, the decay products and the states' scaling are left
-    out, so this stays a lower bound."""
+    S_0: the train path starts from zeros).  Operations: ``plan.
+    wkv6_bwd_ops`` (the count the FLOP formula credits too), each pipe's
+    at its peak -- the TF32 tensor cores' product terms and the FMA pipe's
+    direct dw walk run side by side, so each is a term of its own."""
+    from repro_torch.kernels.plan import wkv6_bwd_ops
     H = WKV_H if H is None else H
     K = WKV_K if K is None else K
     BH = B * H
     nbytes = (esz * 9 * BH * T * K + 4 * 2 * H * K
               + 4 * 2 * BH * K * K)
-    f32 = esz == 4
-    split, exact = (3, 3) if f32 else (2, 1)
-    tc = (2 * 2 * split + 2 * 2 * split + 2 * 3
-          + 2 * chunk / K * exact + 2 * chunk / K * split)
-    steps = BH * T * K * K
-    return bound(nbytes, [tc * steps / TF32_FLOP_PER_S,
-                          6 * steps / F32_FLOP_PER_S])
+    ops = wkv6_bwd_ops(T, K, K, BH, esz, chunk)
+    return bound(nbytes, [ops["tf32"] / TF32_FLOP_PER_S,
+                          ops["fp32"] / F32_FLOP_PER_S])
 
 
 def _bwd_errs(got, want, esz: int) -> list:
@@ -1868,8 +1877,9 @@ def wkv6_bwd_rows(dev, report) -> dict:
     return extra
 
 
-def phase_d(dev) -> None:
-    """Uncoded serving of llama3.2-1b at its published widths."""
+def phase_d(dev) -> dict:
+    """Uncoded serving of llama3.2-1b at its published widths.  Returns
+    the prefill's ms and a decode step's (phase r reads them)."""
     import numpy as np
     import torch
     from repro_torch.launch import serve
@@ -1893,6 +1903,8 @@ def phase_d(dev) -> None:
     serve._MODEL_CACHE.clear()
     del params
     torch.cuda.empty_cache()
+    return {"prefill_ms": t_pre * 1e3, "decode_ms": t_dec * 1e3 / (G - 1),
+            "shape": (B, P, G)}
 
 
 def _frozen_solve_sizes(bridge) -> list:
@@ -2788,7 +2800,7 @@ def phase_o(dev) -> dict:
     run with checkpoints, a preempted run resumed from one, Adafactor, and
     the coded gradient aggregation through the ``mds_encode`` kernel.
     Returns what ``coded_grads_row`` times (the group gradient trees and
-    the generator)."""
+    the generator) and the straight run's median step ms (phase r)."""
     import shutil
     import tempfile
     import torch
@@ -2894,6 +2906,7 @@ def phase_o(dev) -> dict:
 
     state = _coded_grads(dev, cfg, stream)
     state["adamw_bytes_per_param"] = peak_adamw * 2**30 / n_par
+    state["step_ms"] = med
     print(f"[o] phase o {time.perf_counter() - t_phase:.1f} s", flush=True)
     return state
 
@@ -2910,12 +2923,12 @@ def _tmix_grads(params: dict, x, ct, cfg) -> dict:
     return dict(zip(live, g))
 
 
-def phase_p(dev, bytes_per_param: float) -> None:
+def phase_p(dev, bytes_per_param: float) -> float:
     """rwkv6-7b trained at its published widths, 8 of its 32 repeats: the
     memory reckoning and 6 AdamW steps gated on the loss falling, every
     WKV forward and backward through the kernels (``rwkv_train_gates``
     holds its gradients to the plain WKV's after the launch counts are
-    read)."""
+    read).  Returns the median step ms (phase r)."""
     import torch
     from repro_torch import _tree, kernels
     from repro_torch.configs import get_config
@@ -2985,6 +2998,7 @@ def phase_p(dev, bytes_per_param: float) -> None:
     del params, opt, step
     fresh_card(dev, "p")
     print(f"[p] phase p {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return med
 
 
 def rwkv_train_gates(dev) -> None:
@@ -3541,6 +3555,220 @@ def phase_h(dev) -> None:
         raise AssertionError(f"verification moved the timing: {moved}")
 
 
+def phase_r1_start() -> list:
+    """Phase r1's cells, each ``python -m repro_torch.launch.dryrun`` on
+    fake CUDA tensors in a process of its own, all started together.
+    Returns (cell, process, record directory, log) each."""
+    import os
+    out = ROOT / "build" / "dryrun_r1"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape, mp in R1_CELLS:
+        log = out / f"{arch}__{shape}__{'multi' if mp else 'single'}.log"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", "multi" if mp else "single",
+               "--device", "cuda", "--out", str(out)]
+        with open(log, "w") as f:
+            procs.append(((arch, shape, mp), subprocess.Popen(
+                cmd, env=env, stdout=f, stderr=subprocess.STDOUT), out, log))
+    return procs
+
+
+def phase_r1_finish(procs: list) -> list:
+    """Wait for phase r1's cells and print each record: the three terms,
+    the bottleneck, a rank's peak GiB (and its caches as held and as the
+    rules would shard them), the useful ratio and the wall time.  Raises
+    unless every cell traced, made no allocation on the card while
+    tracing and has positive finite terms."""
+    from repro_torch.configs import get_config
+    recs, failed = [], []
+    t0 = time.perf_counter()
+    for (arch, shape, mp), proc, out, log in procs:
+        try:
+            rc = proc.wait(timeout=max(1.0, R1_TIMEOUT
+                                       - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            for _, p, _, _ in procs:
+                p.kill()
+                p.wait()
+            raise AssertionError(f"phase r1: {arch} {shape} still tracing "
+                                 f"after {R1_TIMEOUT} s")
+        if rc:
+            print(log.read_text()[-3000:], flush=True)
+            failed.append(f"{arch} {shape} exited {rc}")
+            continue
+        mesh = "pod2x16x16" if mp else "pod16x16"
+        name = get_config(arch).name.replace("/", "_").replace(".", "_")
+        rec = json.loads((out / f"{name}__{shape}__{mesh}.json").read_text())
+        ma = rec["memory_analysis"]
+        terms = [rec["t_compute"], rec["t_memory"], rec["t_collective"]]
+        caches = ""
+        if "caches_sharded_bytes" in ma:
+            caches = (f", caches {ma['caches_bytes'] / 2**30:.2f} GiB "
+                      f"replicated ({ma['caches_sharded_bytes'] / 2**30:.3f}"
+                      f" GiB under the rules)")
+        print(f"[r1] {rec['arch']} {rec['cell']} {rec['mesh']} "
+              f"({rec['n_chips']} fake ranks, {rec['microbatches']} "
+              f"microbatches): compute {terms[0] * 1e3:.3f} ms, memory "
+              f"{terms[1] * 1e3:.3f} ms, collective {terms[2] * 1e3:.3f} ms "
+              f"-> {rec['bottleneck']}-bound; a rank's peak "
+              f"{ma['peak_size_in_bytes'] / 2**30:.2f} GiB{caches}; "
+              f"FLOPs {rec['flops_per_device']:.4e}, HBM bytes "
+              f"{rec['bytes_per_device']:.4e}, collectives "
+              f"{rec['coll_breakdown']}; useful ratio "
+              f"{rec['useful_ratio']:.4f}; trace {rec['trace_s']} s, wall "
+              f"{rec['wall_s']} s; allocations on the card while tracing "
+              f"{rec['card_allocations']} (the process's peak there "
+              f"{rec['card_bytes_allocated']} B)", flush=True)
+        if rec["status"] != "ok" or rec["card_allocations"] != 0 \
+                or not all(np.isfinite(t) and t > 0 for t in terms):
+            failed.append(f"{arch} {shape}: {rec}")
+        recs.append(rec)
+    if failed:
+        raise AssertionError(f"phase r1: {failed}")
+    return recs
+
+
+def _r2_row(label: str, cfg, cell, rep, measured_ms: float, n_micro: int
+            ) -> None:
+    """Print one step's roofline (the analytic estimate at MeshDesc(1, 1)
+    and the fake trace's) against the card's measured median."""
+    from repro_torch.launch import analytic, roofline
+    est = analytic.estimate(cfg, cell, analytic.MeshDesc(1, 1),
+                            n_micro=n_micro).terms()
+    est_ms = max(est.values()) * 1e3
+    tr_ms = max(rep.t_compute, rep.t_memory) * 1e3
+    mfu = roofline.model_flops(cfg, cell) / (
+        measured_ms * 1e-3 * roofline.HW["peak_flops"])
+    print(f"[r2] {label}: roofline (MeshDesc(1, 1), H100 constants) "
+          f"estimate {est_ms:.3f} ms ({max(est, key=est.get)}), traced "
+          f"{tr_ms:.3f} ms ({rep.bottleneck}: compute "
+          f"{rep.t_compute * 1e3:.3f}, memory {rep.t_memory * 1e3:.3f}); "
+          f"measured median {measured_ms:.3f} ms; bound / measured "
+          f"{est_ms / measured_ms:.4f} (estimate), {tr_ms / measured_ms:.4f}"
+          f" (traced); mfu {mfu:.5f}", flush=True)
+
+
+def phase_r2(dev, measured: dict) -> None:
+    """The roofline against the card's own steps at world 1: phase o's
+    llama3.2-1b train step, phase d's uncoded prefill and decode step and
+    phase p's rwkv6-7b step, each traced on fake CUDA tensors.  Gates on
+    phase o's step: the trace's FLOPs equal ``FlopCounterMode``'s over
+    the same step run for real, and the trace's peak bytes lie within
+    R2_PEAK_TOL of that step's ``max_memory_allocated``."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.models import init_model
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.train_loop import make_train_step
+    fresh_card(dev, "r")
+    cfg = get_config(ARCH)
+    B, T = TRAIN_STREAM["global_batch"], TRAIN_STREAM["seq_len"]
+    n_mb = TRAIN_LOOP["n_microbatches"]
+    cell = ShapeCell("phase o step", T, B, "train")
+    rep, *_ = trace_cell(cfg, cell, None, dev, microbatches=n_mb,
+                         opt_state_dtype=None)
+    # the same step run for real, from the stream's first batch
+    stream = TokenStream(vocab=cfg.vocab, **TRAIN_STREAM)
+    params = init_model(0, cfg, dev)
+    opt = adamw_init(params)
+    batch = _card_batch(stream, 0, dev)
+    step = make_train_step(cfg, n_microbatches=n_mb,
+                           lr_peak=TRAIN_LOOP["lr_peak"],
+                           warmup=TRAIN_LOOP["warmup"],
+                           total_steps=TRAIN_LOOP["total_steps"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with FlopCounterMode(display=False) as fc:
+        out = step(params, opt, batch)
+    torch.cuda.synchronize()
+    real_peak = torch.cuda.max_memory_allocated(dev)
+    real_flops = fc.get_total_flops()
+    del out, params, opt, step
+    fresh_card(dev, "r")
+    fake_peak = rep.memory_analysis["peak_size_in_bytes"]
+    print(f"[r2] phase o's step traced on fake tensors: FLOPs "
+          f"{rep.flops_per_device:.6e}, run for real under FlopCounterMode "
+          f"{real_flops:.6e} (equal {rep.flops_per_device == real_flops}); "
+          f"peak {fake_peak / 2**30:.3f} GiB traced (arguments "
+          f"{rep.memory_analysis['argument_size_in_bytes'] / 2**30:.3f}), "
+          f"{real_peak / 2**30:.3f} GiB max_memory_allocated, ratio "
+          f"{fake_peak / real_peak:.4f}", flush=True)
+    if rep.flops_per_device != real_flops:
+        raise AssertionError(f"phase r2: traced FLOPs "
+                             f"{rep.flops_per_device} != {real_flops}")
+    if abs(fake_peak / real_peak - 1) > R2_PEAK_TOL:
+        raise AssertionError(f"phase r2: traced peak {fake_peak} vs "
+                             f"{real_peak}")
+    _r2_row(f"{cfg.name} phase o step ({B} x {T}, {n_mb} microbatches, "
+            f"AdamW, remat)", cfg, cell, rep, measured["o"], n_mb)
+    Bd, P, G = measured["d"]["shape"]
+    pre = ShapeCell("phase d prefill", P, Bd, "prefill")
+    rep, *_ = trace_cell(cfg, pre, None, dev)
+    _r2_row(f"{cfg.name} phase d prefill ({Bd} x {P})", cfg, pre, rep,
+            measured["d"]["prefill_ms"], 1)
+    dec = ShapeCell("phase d decode", P + G + 8, Bd, "decode")
+    rep, *_ = trace_cell(cfg, dec, None, dev)
+    _r2_row(f"{cfg.name} phase d decode step ({Bd} rows, cache "
+            f"{P + G + 8})", cfg, dec, rep, measured["d"]["decode_ms"], 1)
+    rcfg = _cut(get_config(RWKV), RWKV_TRAIN_CUT)
+    rep, *_ = trace_cell(rcfg, cell, None, dev, microbatches=n_mb,
+                         opt_state_dtype=None)
+    _r2_row(f"{rcfg.name} phase p step ({rcfg.n_repeats} repeats, {B} x "
+            f"{T}, {n_mb} microbatches)", rcfg, cell, rep, measured["p"],
+            n_mb)
+
+
+def phase_r3(dev) -> None:
+    """The card's own constants beside the cited peaks: the median bf16
+    ``torch.matmul`` rate at R3_MATMUL cubed and the bandwidth of an
+    R3_COPY_BYTES device-to-device copy (read + write)."""
+    import torch
+    from repro_torch.launch.roofline import HW
+    n = R3_MATMUL
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn((n, n), generator=g, device=dev, dtype=torch.bfloat16)
+    b = torch.randn((n, n), generator=g, device=dev, dtype=torch.bfloat16)
+    mm_ms = time_ms(lambda: torch.matmul(a, b), iters=20)
+    del a, b
+    src = torch.empty(R3_COPY_BYTES, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    cp_ms = time_ms(lambda: dst.copy_(src), iters=20)
+    del src, dst
+    torch.cuda.empty_cache()
+    rate = 2.0 * n ** 3 / (mm_ms * 1e-3)
+    bw = 2.0 * R3_COPY_BYTES / (cp_ms * 1e-3)
+    print(f"[r3] {card_line()}: bf16 matmul {n}^3 median {mm_ms:.3f} ms = "
+          f"{rate / 1e12:.1f} TFLOP/s ({rate / HW['peak_flops']:.3f} of the "
+          f"cited {HW['peak_flops'] / 1e12:.1f}); copy of "
+          f"{R3_COPY_BYTES / 2**30:.0f} GiB median {cp_ms:.3f} ms = "
+          f"{bw / 1e12:.3f} TB/s read + write ({bw / HW['hbm_bw']:.3f} of "
+          f"the cited {HW['hbm_bw'] / 1e12:.2f})", flush=True)
+
+
+def phase_r(dev, measured: dict) -> None:
+    """The analysis tools on the card: r1's production cells traced on
+    fake CUDA tensors (host processes, started first), r2 and r3 on the
+    card meanwhile."""
+    t0 = time.perf_counter()
+    procs = phase_r1_start()
+    try:
+        phase_r2(dev, measured)
+        phase_r3(dev)
+    except BaseException:
+        for _, p, _, _ in procs:
+            p.kill()
+            p.wait()
+        raise
+    phase_r1_finish(procs)
+    print(f"[r] phase r {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3571,7 +3799,7 @@ def main() -> int:
     ds_seed, ds_s = deepseek_coded_seed()
     rows = phase_c(dev, ds_s)
     decode_route_rows(dev)
-    phase_d(dev)
+    measured = {"d": phase_d(dev)}
     kernels.reset_launch_counts()
     phase_e(dev)
     phase_f(dev)
@@ -3586,7 +3814,8 @@ def main() -> int:
     # row 5g's group gradients wait on the host while phase p trains
     grads["trees"] = [_tree.map(lambda t: t.cpu(), t)
                       for t in grads["trees"]]
-    phase_p(dev, grads["adamw_bytes_per_param"])
+    measured["o"] = grads["step_ms"]
+    measured["p"] = phase_p(dev, grads["adamw_bytes_per_param"])
     q_launches = phase_q(dev)
     launches = {k: v + q_launches[k]
                 for k, v in kernels.launch_counts().items()}
@@ -3602,6 +3831,8 @@ def main() -> int:
     grads["trees"] = [_tree.map(lambda t: t.to(dev), t)
                       for t in grads["trees"]]
     rows["mds_encode"]["coded_grads"] = coded_grads_row(dev, grads)
+    del grads
+    phase_r(dev, measured)
     print(f"[i] total {time.perf_counter() - t_start:.1f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -4,7 +4,7 @@
 // repro/models/rwkv.py::wkv6_chunked, the recurrence every RWKV layer's
 // training forward runs: the reference has no backward kernel, and
 // repro/kernels/wkv6.py::wkv6_pallas none either.  The forward is
-// csrc/wkv6.cu; kernels/wkv6.py::Wkv6Fn launches one after the other.
+// csrc/wkv6.cu; the wkv6 operator (kernels/wkv6.py) launches one after the other.
 // For each row bh = (b, h), from S_0 (given, or zero), with the decays
 // clamped to w >= 1e-12 as the reference's log clamps them:
 //

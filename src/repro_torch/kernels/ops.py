@@ -238,7 +238,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          u: torch.Tensor, *, chunk: int = 64) -> torch.Tensor:
     """Batched WKV6 with the reference's signature and result: r, k, w
     (BH, T, K), v (BH, T, V), one shared u (K,) → out (BH, T, V) in v's
-    dtype, differentiable (``Wkv6Fn``).  ``chunk`` is the plain version's
+    dtype, differentiable (the ``wkv6`` operator).  ``chunk`` is the plain version's
     chunk (CPU tensors); the kernel pads a ragged chunk itself."""
     K = r.shape[-1]
     out, _ = wkv6_dev(r.contiguous(), k.contiguous(), v.contiguous(),
@@ -254,7 +254,7 @@ def wkv6_heads(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The RWKV mixer's WKV: r, k, w (B, H, T, K), v (B, H, T, V), u (H,
     K), ``state`` (B, H, K, V) or None for zeros → (out (B, H, T, V) in
     v's dtype, final state (B, H, K, V) float32), in one launch, and its
-    gradient in one backward launch (``Wkv6Fn``)."""
+    gradient in one backward launch (the ``wkv6`` operator)."""
     B, H, T, K = r.shape
     V = v.shape[-1]
 

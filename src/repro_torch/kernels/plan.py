@@ -24,11 +24,11 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Tuple
+from typing import Dict, Tuple
 
 __all__ = ["TileConfig", "GemmPlan", "CONFIGS", "gemm_plan", "MatvecPlan",
            "matvec_plan", "Wkv6Plan", "wkv6_plan", "Wkv6BwdPlan",
-           "wkv6_bwd_plan"]
+           "wkv6_bwd_plan", "wkv6_ops", "wkv6_bwd_ops"]
 
 #: no slab shorter than this many K elements (the second pass and the
 #: pipeline's fill cost more than a shorter slab saves)
@@ -263,6 +263,24 @@ def wkv6_plan(T: int, K: int, V: int, BH: int, vec: int = 4) -> Wkv6Plan:
                     _wkv6_chunked_smem(kk), 1)
 
 
+def wkv6_ops(T: int, K: int, V: int, BH: int, esz: int) -> Tuple[float, str]:
+    """(operations, pipe) of one WKV call on the route :func:`wkv6_plan`
+    gives T: the least work the kernel does, which its bound
+    (``chip_smoke.py::_wkv6_bound``) and its FLOP formula (the dry-run's
+    count) both read.  The decode step (T <= 1) runs about 6 K V float32
+    operations per (bh, t) outside the tensor cores ("fp32").  The chunked
+    route (T > 1) runs its two K x V products a step, the carry-in (r ⊙ F)
+    S and the state update (k ⊙ G)ᵀ v, 2 K V operations each, on the TF32
+    tensor cores ("tf32"), once for each product its precision route takes:
+    the state update two for bf16 inputs (``esz`` 2: v exact, the float32
+    factor split) and three for float32, the output products one for bf16
+    and three for float32.  The chunk's strict-causal products and the
+    FMA-pipe work are left out."""
+    if T <= 1:
+        return 6.0 * BH * T * K * V, "fp32"
+    products = 2 + 1 if esz == 2 else 3 + 3
+    return 2.0 * products * BH * T * K * V, "tf32"
+
 # -- wkv6 backward (csrc/wkv6_bwd.cu) -----------------------------------------
 #
 # Two launches.  Level 1 steps the state S forward and the cotangent state
@@ -348,3 +366,29 @@ def wkv6_bwd_plan(T: int, K: int, V: int, BH: int) -> Wkv6BwdPlan:
                        WKV_BWD_THREADS, _wkv6_bwd_chunk_smem(kk, vv),
                        2 if kk * vv <= 4096 else 1,
                        4 * 2 * BH * nc * kk * vv)
+
+
+def wkv6_bwd_ops(T: int, K: int, V: int, BH: int, esz: int,
+                 chunk: int) -> Dict[str, float]:
+    """Operations of one WKV backward call on its two-level route by pipe
+    (the tensor cores' "tf32", the FMA pipe's "fp32"), per (bh, t) in units
+    of K V (read by ``chip_smoke.py::_wkv6_bwd_bound`` and the FLOP
+    formula):
+
+    * on the TF32 tensor cores, 2 operations a product term, once for each
+      product its precision route takes (a float32 factor split into head
+      + tail takes 2 against an exact bf16 operand, 3 against a float32
+      one; two bf16 operands 1): level 1's state updates of S and D, 2 K V
+      each, 2 / 3 products (bf16 / f32); level 2's X = S_c dOᵀ and Y = D_e
+      Vᵀ, 2 K V each, 2 / 3; Z = (K ⊙ G) D_e, 2 K V, 3 (both float32); B =
+      dO Vᵀ, 2 chunk V, 1 / 3; dv's (A + diag)ᵀ dO, 2 chunk V, 2 / 3;
+    * on the FMA pipe at the FP32 rate, the direct dw walk: S stepped
+      forward, D stepped backward and Σ_v S ⊙ D, 2 K V each.
+
+    The in-chunk pairs, the decay products and the states' scaling are
+    left out."""
+    split, exact = (3, 3) if esz == 4 else (2, 1)
+    tc = (2 * 2 * split + 2 * 2 * split + 2 * 3
+          + 2 * chunk / K * exact + 2 * chunk / K * split)
+    steps = BH * T * K * V
+    return {"tf32": tc * steps, "fp32": 6 * steps}

@@ -7,11 +7,14 @@ The CUDA kernels are ``csrc/wkv6.cu`` (design notes there): a chunked
 tensor-core form for T > 1 and a state-streaming decode for T <= 1, on the
 plan of :func:`repro_torch.kernels.plan.wkv6_plan`; and
 ``csrc/wkv6_bwd.cu``, the backward, on the plan of
-:func:`repro_torch.kernels.plan.wkv6_bwd_plan`.  :class:`Wkv6Fn` wraps the
-two in one ``torch.autograd.Function``: on CUDA tensors it launches the
-kernels or raises, on CPU tensors it runs their plain versions
+:func:`repro_torch.kernels.plan.wkv6_bwd_plan`.  The two are operators
+of their own, ``torch.ops.repro_torch.wkv6`` (:func:`wkv6_op`) and
+``wkv6_bwd``, the second the first's gradient: on CUDA tensors they
+launch the kernels or raise, on CPU tensors they run their plain versions
 (:func:`repro_torch.kernels.ref.wkv6_chunked_ref`,
-:func:`repro_torch.kernels.ref.wkv6_bwd_ref`).
+:func:`repro_torch.kernels.ref.wkv6_bwd_ref`), on fake tensors they give
+shapes alone, and ``torch.utils.flop_counter`` counts the operations their
+routes run.
 """
 from __future__ import annotations
 
@@ -21,11 +24,12 @@ import torch
 
 from . import _build
 from ._launch import I, P, check_cuda, raise_on_error, stream_ptr
-from .plan import WKV_BWD_V_MAX, WKV_K_MAX, wkv6_bwd_plan, wkv6_plan
+from .plan import (WKV_BWD_V_MAX, WKV_K_MAX, wkv6_bwd_ops, wkv6_bwd_plan,
+                   wkv6_ops, wkv6_plan)
 from .ref import wkv6_bwd_ref, wkv6_chunked_ref
 
-__all__ = ["wkv6_dev", "wkv6_cuda", "wkv6_bwd_cuda", "Wkv6Fn",
-           "WKV6_LAUNCHES", "WKV6_BWD_LAUNCHES"]
+__all__ = ["wkv6_dev", "wkv6_cuda", "wkv6_bwd_cuda", "wkv6_op",
+           "wkv6_bwd_op", "WKV6_LAUNCHES", "WKV6_BWD_LAUNCHES"]
 
 #: kernel launches since the last reset (see :mod:`repro_torch.kernels`):
 #: the forward and the backward
@@ -192,51 +196,137 @@ def _heads(t: Optional[torch.Tensor], H: int):
                                             *t.shape[1:])
 
 
-class Wkv6Fn(torch.autograd.Function):
-    """WKV6 with its backward: (r, k, v, w, u, state, chunk) → (out, final
-    state), in :func:`wkv6_cuda`'s layout.  On CUDA tensors the forward
-    launches ``csrc/wkv6.cu`` and the backward ``csrc/wkv6_bwd.cu``, or
-    raise; on CPU tensors they run the plain versions (``chunk`` steps a
-    chunk in the forward).  Only the inputs are saved; an unused final
-    state (or output) sends no cotangent, so none is made of zeros."""
+def _fake_only(name: str, t: torch.Tensor) -> None:
+    """The shape-only implementations run for fake tensors alone (the
+    dry-run's traces): a meta tensor has no device to run on."""
+    from torch._subclasses.fake_tensor import is_fake
+    if not is_fake(t):
+        raise ValueError(f"{name}: expected a tensor on a CUDA device or "
+                         f"the CPU, got {t.device}")
 
-    @staticmethod
-    def forward(ctx, r, k, v, w, u, state, chunk):
-        ctx.set_materialize_grads(False)
-        ctx.save_for_backward(r, k, v, w, u, state)
-        if r.device.type != "cpu":
-            return wkv6_cuda(r, k, v, w, u, state)
-        H = u.shape[0]
-        out, s = wkv6_chunked_ref(_heads(r, H), _heads(k, H), _heads(v, H),
-                                  _heads(w, H), u, _heads(state, H),
-                                  chunk=chunk)
-        return out.reshape(v.shape), s.reshape(r.shape[0], *s.shape[2:])
 
-    @staticmethod
-    def backward(ctx, d_out, d_state):
-        r, k, v, w, u, state = ctx.saved_tensors
-        if d_out is None:
-            d_out = torch.zeros_like(v)
-        else:
-            d_out = d_out.to(v.dtype).contiguous()
-        if d_state is not None:
-            d_state = d_state.float().contiguous()
-        if r.device.type != "cpu":
-            dr, dk, dv, dw, du, ds0 = wkv6_bwd_cuda(r, k, v, w, u, state,
-                                                    d_out, d_state)
-        else:
-            H = u.shape[0]
-            dr, dk, dv, dw, du, ds0 = wkv6_bwd_ref(
-                _heads(r, H), _heads(k, H), _heads(v, H), _heads(w, H), u,
-                _heads(state, H), _heads(d_out, H), _heads(d_state, H))
-            dr, dk, dw = (t.reshape(r.shape) for t in (dr, dk, dw))
-            dv = dv.reshape(v.shape)
-            ds0 = ds0.reshape(r.shape[0], *ds0.shape[2:])
-        need = ctx.needs_input_grad
-        return (dr if need[0] else None, dk if need[1] else None,
-                dv if need[2] else None, dw if need[3] else None,
-                du if need[4] else None,
-                ds0 if state is not None and need[5] else None, None)
+# The WKV and its backward as operators of their own: one entry
+# (``torch.ops.repro_torch.wkv6`` / ``wkv6_bwd``), an implementation per
+# device -- the kernels on CUDA tensors (launched or raising), the plain
+# versions on CPU tensors -- and a fake one that gives shapes and dtypes
+# alone, so FakeTensorMode traces the model through the WKV without a
+# launch.  Their FLOP formulas credit the operations their routes run
+# (plan.wkv6_ops, plan.wkv6_bwd_ops).
+
+@torch.library.custom_op(
+    "repro_torch::wkv6", mutates_args=(), device_types="cpu",
+    schema="(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor? "
+           "state, int chunk) -> (Tensor, Tensor)")
+def wkv6_op(r, k, v, w, u, state, chunk):
+    """WKV6 in :func:`wkv6_cuda`'s layout: (r, k, v, w, u, state, chunk)
+    → (out, final state).  CPU tensors: the plain chunked version,
+    ``chunk`` steps a chunk."""
+    H = u.shape[0]
+    out, s = wkv6_chunked_ref(_heads(r, H), _heads(k, H), _heads(v, H),
+                              _heads(w, H), u, _heads(state, H),
+                              chunk=chunk)
+    # contiguous, as the kernel's and the fake implementation's outputs
+    return (out.reshape(v.shape).contiguous(),
+            s.reshape(r.shape[0], *s.shape[2:]).contiguous())
+
+
+@wkv6_op.register_kernel("cuda")
+def _(r, k, v, w, u, state, chunk):
+    return wkv6_cuda(r, k, v, w, u, state)
+
+
+@wkv6_op.register_fake
+def _(r, k, v, w, u, state, chunk):
+    _fake_only("wkv6", r)
+    _check("wkv6", r, k, v, w, u, state)
+    BH, T, K = r.shape
+    V = v.shape[-1]
+    return (r.new_empty((BH, T, V)),
+            r.new_empty((BH, K, V), dtype=torch.float32))
+
+
+@torch.library.custom_op(
+    "repro_torch::wkv6_bwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor? "
+           "state, Tensor do, Tensor? dS_T) -> (Tensor, Tensor, Tensor, "
+           "Tensor, Tensor, Tensor)")
+def wkv6_bwd_op(r, k, v, w, u, state, do, dS_T):
+    """The WKV6 backward in :func:`wkv6_bwd_cuda`'s layout → (dr, dk, dv,
+    dw, du, dS_0).  CPU tensors: the plain version."""
+    H = u.shape[0]
+    dr, dk, dv, dw, du, ds0 = wkv6_bwd_ref(
+        _heads(r, H), _heads(k, H), _heads(v, H), _heads(w, H), u,
+        _heads(state, H), _heads(do, H), _heads(dS_T, H))
+    return tuple(t.contiguous() for t in (
+        dr.reshape(r.shape), dk.reshape(r.shape), dv.reshape(v.shape),
+        dw.reshape(r.shape), du, ds0.reshape(r.shape[0], *ds0.shape[2:])))
+
+
+@wkv6_bwd_op.register_kernel("cuda")
+def _(r, k, v, w, u, state, do, dS_T):
+    return wkv6_bwd_cuda(r, k, v, w, u, state, do, dS_T)
+
+
+@wkv6_bwd_op.register_fake
+def _(r, k, v, w, u, state, do, dS_T):
+    _fake_only("wkv6_bwd", r)
+    _check("wkv6_bwd", r, k, v, w, u, state)
+    BH, _, K = r.shape
+    V = v.shape[-1]
+    return (torch.empty_like(r), torch.empty_like(r), torch.empty_like(v),
+            torch.empty_like(r), torch.empty_like(u),
+            r.new_empty((BH, K, V), dtype=torch.float32))
+
+
+def _wkv6_setup(ctx, inputs, output):
+    r, k, v, w, u, state, _ = inputs
+    # an unused output sends no cotangent, so none is made of zeros
+    ctx.set_materialize_grads(False)
+    ctx.save_for_backward(r, k, v, w, u, state)
+
+
+def _wkv6_backward(ctx, d_out, d_state):
+    r, k, v, w, u, state = ctx.saved_tensors
+    if d_out is None:
+        d_out = torch.zeros_like(v)
+    else:
+        d_out = d_out.to(v.dtype).contiguous()
+    if d_state is not None:
+        d_state = d_state.float().contiguous()
+    dr, dk, dv, dw, du, ds0 = wkv6_bwd_op(r, k, v, w, u, state, d_out,
+                                          d_state)
+    need = ctx.needs_input_grad
+    return (dr if need[0] else None, dk if need[1] else None,
+            dv if need[2] else None, dw if need[3] else None,
+            du if need[4] else None,
+            ds0 if state is not None and need[5] else None, None)
+
+
+wkv6_op.register_autograd(_wkv6_backward, setup_context=_wkv6_setup)
+
+
+def _wkv6_flops(r, k, v, w, u, state, chunk, out_val=None, **_):
+    BH, T, K = r.shape
+    return int(wkv6_ops(T, K, v.shape[-1], BH, r.element_size())[0])
+
+
+def _wkv6_bwd_flops(r, k, v, w, u, state, do, dS_T, out_val=None, **_):
+    BH, T, K = r.shape
+    V = v.shape[-1]
+    ops = wkv6_bwd_ops(T, K, V, BH, r.element_size(),
+                       wkv6_bwd_plan(T, K, V, BH).chunk)
+    return int(sum(ops.values()))
+
+
+def _register_flops() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+    register_flop_formula(torch.ops.repro_torch.wkv6,
+                          get_raw=True)(_wkv6_flops)
+    register_flop_formula(torch.ops.repro_torch.wkv6_bwd,
+                          get_raw=True)(_wkv6_bwd_flops)
+
+
+_register_flops()
 
 
 def wkv6_dev(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -244,7 +334,8 @@ def wkv6_dev(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              state: Optional[torch.Tensor] = None, *, chunk: int = 64
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """WKV6 over (BH, T, ·) rows with u (H, K), differentiable through
-    :class:`Wkv6Fn`: the kernels for CUDA tensors, the plain versions
-    (the forward in chunks of ``chunk`` steps) for CPU tensors.  Returns
-    (out, final state) as :func:`wkv6_cuda` does."""
-    return Wkv6Fn.apply(r, k, v, w, u, state, chunk)
+    the ``wkv6`` operator (:func:`wkv6_op`): the kernels for CUDA tensors,
+    the plain versions (the forward in chunks of ``chunk`` steps) for CPU
+    tensors, shapes alone for fake ones.  Returns (out, final state) as
+    :func:`wkv6_cuda` does."""
+    return wkv6_op(r, k, v, w, u, state, chunk)

@@ -92,6 +92,14 @@ def _put(cache: torch.Tensor, idx: tuple, value: torch.Tensor) -> None:
         cache.copy_(value)
 
 
+def _roll(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """``torch.roll(x, shift, dims=1)`` for 0 <= shift < x.shape[1], as
+    two slices: ``roll`` has no DTensor rule on every torch release."""
+    if shift == 0:
+        return x
+    return torch.cat([x[:, -shift:], x[:, :-shift]], dim=1)
+
+
 def _heads(fn, q, k, v, kv_valid=None):
     """``fn(q, k, v, kv_valid)``, an attention over heads: q (B, Tq, Hq,
     D), k / v (B, Tk, Hkv, D), kv_valid (B,) or None.  On DTensors it runs
@@ -187,8 +195,8 @@ def apply_gqa(params: dict, x: torch.Tensor, *, cfg: ArchConfig,
             # ring smaller than prompt → keep the tail, aligned so that
             # token p sits in slot p % S
             shift = (T - S) % S
-            _put(k_cache, (), torch.roll(k[:, -S:], shift, dims=1))
-            _put(v_cache, (), torch.roll(v[:, -S:], shift, dims=1))
+            _put(k_cache, (), _roll(k[:, -S:], shift))
+            _put(v_cache, (), _roll(v[:, -S:], shift))
         else:
             _put(k_cache, (slice(None), slice(0, T)), k)
             _put(v_cache, (slice(None), slice(0, T)), v)

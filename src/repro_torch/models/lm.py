@@ -277,6 +277,13 @@ def _run_blocks(blocks, x, *, cfg: ArchConfig, specs, n_repeats: int,
         and ctx.remat_policy != "none"
 
     def repeat(x, r):
+        # a remat recompute runs in the backward, outside the forward's
+        # scope: it enters the mesh's own
+        with pops.replicating() if ctx.mesh is not None \
+                else contextlib.nullcontext():
+            return _repeat(x, r)
+
+    def _repeat(x, r):
         for i, spec in enumerate(specs):
             name = f"layer{i}"
             c = _at(caches[name], r) if caches is not None else None
@@ -348,19 +355,18 @@ def _on_mesh(tokens, ctx: ModelCtx):
     """(tokens, the context the forward runs in).  Under a mesh: the
     tokens as a DTensor sharded on the batch over the data dims when it
     divides (:func:`~repro_torch.parallel.sharding.batch_sharding`), and
-    ``implicit_replication`` so plain tensors built inside the forward
+    ``parallel.ops.replicating`` so plain tensors built inside the forward
     (positions, masks) join DTensor ops as replicated."""
     if ctx.mesh is None:
         return tokens, contextlib.nullcontext()
     from torch.distributed.tensor import distribute_tensor
-    from torch.distributed.tensor.experimental import implicit_replication
     from ..parallel import sharding as sh
     if not pops.is_dtensor(tokens):
         spec = sh.batch_sharding(ctx.mesh, tuple(tokens.shape))
         tokens = distribute_tensor(tokens, ctx.mesh,
                                    sh.placements(spec, ctx.mesh),
                                    src_data_rank=None)
-    return tokens, implicit_replication()
+    return tokens, pops.replicating()
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,7 @@ Every branch of the time-mix (full sequence, prefill, one-token decode)
 runs its WKV recurrence through :func:`repro_torch.kernels.ops.wkv6_heads`:
 the hand-written kernel on the card, the plain chunked version on the CPU.
 Every branch also trains: the call is differentiable through
-:class:`repro_torch.kernels.wkv6.Wkv6Fn`, whose backward is the
+:func:`repro_torch.kernels.wkv6.wkv6_op`, whose backward is the
 hand-written ``csrc/wkv6_bwd.cu`` on the card and its plain twin on the
 CPU; ``u``'s float32 cast and the decays' cast to the activation type
 carry the gradients back to the parameters' type, as the reference's

@@ -20,17 +20,35 @@ it; the port's kernels and the bodies the reference wrote under
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["sharded_embed", "token_nll", "is_dtensor", "group_of",
+__all__ = ["sharded_embed", "token_nll", "is_dtensor", "replicating",
+           "group_of",
            "data_placements", "gather_on_use", "settle", "per_head", "psum",
            "all_to_all", "all_gather", "EMBED_CALLS"]
 
 #: sharded embeddings taken through the masked-take body (the tests and
 #: the smoke run read it to show the path ran)
 EMBED_CALLS = 0
+
+
+@contextlib.contextmanager
+def replicating():
+    """DTensor's ``implicit_replication`` for the body of the ``with``,
+    restored to what it was after (torch's own context turns it off on
+    exit, also when nested in another): plain tensors built inside the
+    forward (positions, masks) join DTensor ops as replicated."""
+    from torch.distributed.tensor import DTensor
+    disp = DTensor._op_dispatcher
+    was = disp._allow_implicit_replication
+    disp._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        disp._allow_implicit_replication = was
 
 
 def is_dtensor(t) -> bool:
@@ -44,7 +62,11 @@ def group_of(mesh, axes: Sequence[str]):
     axes = tuple(axes)
     if len(axes) == 1:
         return mesh.get_group(axes[0])
-    return mesh[axes]._flatten().get_group()
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    # the mesh's rank table is host bookkeeping: under a fake mode (the
+    # dry-run's) it stays a real tensor
+    with unset_fake_temporarily():
+        return mesh[axes]._flatten().get_group()
 
 
 def _backend(group) -> str:
@@ -217,10 +239,21 @@ def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logits (B, T, V) any dtype; labels (B, T) integer (int32 as the data
     pipeline gives them) → (B, T) float32.  The max is detached, as the
     reference's ``stop_gradient``; the label's logit is gathered (the
-    reference's iota-compare sum picks the same value)."""
+    reference's iota-compare sum picks the same value; vocab-sharded
+    DTensor logits take that sum)."""
     lg = logits.float()
     m = lg.amax(dim=-1, keepdim=True).detach()
     shifted = lg - m
     lse = torch.log(torch.exp(shifted).sum(dim=-1))
-    picked = shifted.gather(-1, labels.long()[..., None])[..., 0]
+    if not (is_dtensor(lg) and any(p.is_shard(lg.ndim - 1)
+                                   for p in lg.placements)):
+        picked = shifted.gather(-1, labels.long()[..., None])[..., 0]
+        return lse - picked
+    # vocab-sharded logits: a sharded gather has no working DTensor rule,
+    # so the reference's iota compare, summed over the shards (one
+    # nonzero term: the same value)
+    with replicating():
+        iota = torch.arange(lg.shape[-1], device=lg.device)
+        hit = iota == labels.long()[..., None]
+        picked = torch.where(hit, shifted, 0.0).sum(dim=-1)
     return lse - picked

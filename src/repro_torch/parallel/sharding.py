@@ -313,10 +313,10 @@ def distribute(tree, specs, mesh):
         pl = placements(spec, mesh)
         d = distribute_tensor(t, mesh, pl, src_data_rank=None)
         loc = d.to_local()
-        if loc.numel() < t.numel() and loc.untyped_storage().data_ptr() \
-                == t.untyped_storage().data_ptr():
+        if loc.untyped_storage().nbytes() > loc.numel() * loc.element_size():
             # a dim-0 shard is a view of the full tensor: copy it, so the
-            # full tensor is freed with the caller's last reference
+            # full tensor is freed with the caller's last reference (and a
+            # rank's memory holds only its shard)
             d = DTensor.from_local(loc.clone(), mesh, pl, run_check=False,
                                    shape=t.shape, stride=t.stride())
         return d

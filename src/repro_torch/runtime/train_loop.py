@@ -8,7 +8,8 @@ metrics) function:
 * optional MTP auxiliary loss (DeepSeek): 0.1 × the nll of labels shifted
   one extra step;
 * gradient accumulation: the global batch is split into
-  ``n_microbatches`` contiguous row blocks (the reference's reshape), the
+  ``n_microbatches`` contiguous row blocks (the reference's reshape; under
+  a mesh, blocks of each data-parallel shard's rows), the
   gradients accumulated in ``acc_dtype`` (float32) and cast back to each
   parameter's dtype after the division;
 * AdamW or Adafactor update with the cosine schedule.
@@ -21,6 +22,7 @@ the data stream's state, on ``device`` (default ``cuda``).
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import tempfile
 import time
@@ -35,7 +37,7 @@ from ..device import resolve_device
 from ..models import ArchConfig, ModelCtx, model_fwd
 from ..optim import (adafactor_update, adamw_init, adamw_update,
                      cosine_warmup)
-from ..parallel.ops import token_nll
+from ..parallel.ops import is_dtensor, token_nll
 
 __all__ = ["TrainLoopConfig", "TrainLoop", "make_train_step", "loss_fn",
            "value_and_grad"]
@@ -73,6 +75,19 @@ def value_and_grad(params, batch, *, cfg: ArchConfig,
     return loss.detach(), _tree.unflatten(skeleton, grads)
 
 
+def _microbatch(v: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``n`` of ``v``'s rows: block i of the rows of
+    each data-parallel shard (a DTensor's row shards stay on their ranks);
+    on one device, block i of all rows (the reference's reshape)."""
+    dp = 1
+    if is_dtensor(v):
+        dp = math.prod(v.device_mesh.size(d) for d, p in
+                       enumerate(v.placements) if p.is_shard(0))
+    B, rest = v.shape[0], tuple(v.shape[1:])
+    return v.reshape((dp, n, B // (dp * n)) + rest)[:, i].reshape(
+        (B // n,) + rest)
+
+
 def make_train_step(cfg: ArchConfig, *, ctx: ModelCtx = ModelCtx(),
                     n_microbatches: int = 1,
                     lr_peak: float = 3e-4, warmup: int = 100,
@@ -84,7 +99,8 @@ def make_train_step(cfg: ArchConfig, *, ctx: ModelCtx = ModelCtx(),
     """Build train_step(params, opt_state, batch) → (params, opt, metrics).
 
     With ``n_microbatches > 1`` every array in ``batch`` is split along
-    its leading axis into ``n_microbatches`` contiguous blocks, and the
+    its leading axis into ``n_microbatches`` contiguous blocks (of each
+    data-parallel shard's rows under a mesh), and the
     gradients are accumulated in ``acc_dtype``.  ``opt_state_dtype`` is
     accepted and unused, as in the reference: the state's dtype is the
     one its ``adamw_init`` chose."""
@@ -99,13 +115,11 @@ def make_train_step(cfg: ArchConfig, *, ctx: ModelCtx = ModelCtx(),
             loss, grads = single(params, batch)
         else:
             def mb_at(i):
-                return {k: v.reshape((n_microbatches,
-                                      v.shape[0] // n_microbatches)
-                                     + v.shape[1:])[i]
+                return {k: _microbatch(v, i, n_microbatches)
                         for k, v in batch.items()}
             p_leaves, skeleton = _tree.flatten(params)
-            acc = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
-                   for p in p_leaves]
+            # shaped and placed as each parameter (a DTensor's shards)
+            acc = [torch.zeros_like(p, dtype=acc_dt) for p in p_leaves]
             loss = torch.zeros((), dtype=torch.float32,
                                device=p_leaves[0].device)
             for i in range(n_microbatches):

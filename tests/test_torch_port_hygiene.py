@@ -107,5 +107,8 @@ def test_entry_points_default_to_cuda():
         TrainLoop(cfg, TrainLoopConfig(), TokenStream(cfg.vocab, 8, 2))
     with pytest.raises(RuntimeError, match="cuda"):
         train.main(["--steps", "1"])
+    from repro_torch.launch import dryrun
+    with pytest.raises(RuntimeError, match="cuda"):
+        dryrun.run_cell("llama3.2-1b", "decode_32k", False)
     _, params = build_model("llama3.2-1b", smoke=True, seed=0, device="cpu")
     assert params["final_norm"].device.type == "cpu"

@@ -1,10 +1,10 @@
 """The port's training stack against the reference's, on the CPU in
 float32: the cosine schedule, ``token_nll``, AdamW (with clipping) and
 Adafactor, the loss and its gradients (llama3.2, deepseek-v3 smoke: MLA,
-MoE, the MTP loss; rwkv6 smoke: the WKV through ``Wkv6Fn`` and its plain
-backward), the train step over 3 steps (microbatches + AdamW; Adafactor),
-the remat policies, coded gradient aggregation, a bit-equal resume of
-``TrainLoop`` and the launcher.
+MoE, the MTP loss; rwkv6 smoke: the WKV through the ``wkv6`` operator and
+its plain backward), the train step over 3 steps (microbatches + AdamW;
+Adafactor), the remat policies, coded gradient aggregation, a bit-equal
+resume of ``TrainLoop`` and the launcher.
 
 The parameters are the reference's ``init_model`` tree carried across by
 ``params_from_numpy``; the batches come from ``TokenStream``.  Each
@@ -179,11 +179,11 @@ def test_optimizer_update_matches_reference(optimizer):
 @pytest.mark.parametrize("arch", [LLAMA, DEEPSEEK, RWKV])
 def test_loss_and_grads_match_reference(models, arch):
     """``value_and_grad`` of the loss (DeepSeek: with the MTP term; RWKV-6:
-    the WKV's gradient from ``Wkv6Fn``'s plain backward against ``jax``'s
-    autodiff of the chunked form) against ``jax.value_and_grad`` of the
-    reference's: the loss within 1e-6 relative (measured 7.6e-8), every
-    gradient leaf within 2e-5 of its largest entry (float32 through the
-    whole stack and its backward; measured 1.8e-6, RWKV-6 2.1e-6)."""
+    the WKV's gradient from the ``wkv6`` operator's plain backward against
+    ``jax``'s autodiff of the chunked form) against ``jax.value_and_grad``
+    of the reference's: the loss within 1e-6 relative (measured 7.6e-8),
+    every gradient leaf within 2e-5 of its largest entry (float32 through
+    the whole stack and its backward; measured 1.8e-6, RWKV-6 2.1e-6)."""
     jcfg, jp, tcfg, tp = models(arch)
     jb, tb = _batch(tcfg)
     jl, jg = jax.jit(jax.value_and_grad(
@@ -241,7 +241,7 @@ def test_remat_policy_gives_bit_equal_grads(models, policy, arch):
     """Recomputing a repeat of the block (whole, or all but its matmuls)
     gives the gradients of the forward that keeps everything, bit for
     bit (DeepSeek smoke: MLA, MoE, a prefix layer and MTP; RWKV-6 smoke:
-    ``Wkv6Fn`` run again under the checkpoint's dispatch mode)."""
+    the ``wkv6`` operator run again under the checkpoint's dispatch mode)."""
     _, _, tcfg, tp = models(arch)
     _, tb = _batch(tcfg)
     l0, g0 = value_and_grad(tp, tb, cfg=tcfg, ctx=ModelCtx("none"))
@@ -377,8 +377,8 @@ def test_launcher_trains_and_resumes(tmp_path, capsys):
 
 def test_launcher_trains_rwkv(tmp_path, capsys):
     """``--arch rwkv6-7b --device cpu``: the smoke RWKV-6 trains through
-    ``Wkv6Fn`` (the plain forward and backward on CPU tensors), and 20
-    steps improve the loss and exit 0."""
+    the ``wkv6`` operator (the plain forward and backward on CPU tensors),
+    and 20 steps improve the loss and exit 0."""
     assert tlaunch.main(["--arch", RWKV, "--device", "cpu", "--steps", "20",
                          "--seq", "32", "--batch", "4", "--ckpt-dir",
                          str(tmp_path), "--ckpt-every", "20"]) == 0
@@ -388,10 +388,10 @@ def test_launcher_trains_rwkv(tmp_path, capsys):
 
 
 def test_wkv6_trains_off_the_cpu_through_the_kernel():
-    """Off the CPU a training call goes through ``Wkv6Fn`` to the kernel:
-    with inputs that require grad (meta tensors stand in for the card's
-    here) it reaches the kernel's own device check, with grad and
-    without, and never the plain version."""
+    """Off the CPU a training call goes through the ``wkv6`` operator,
+    never to the plain version: meta tensors (which stand in for the
+    card's here), neither the CPU's nor fake, are refused at its device
+    check, with grad and without."""
     def inputs(grad):
         t = [torch.empty((2, 4, 8), device="meta", requires_grad=grad)
              for _ in range(4)]

@@ -1,19 +1,19 @@
 """The WKV backward of the port against the reference's gradient, on the
 CPU.
 
-``ref.wkv6_bwd_ref`` (the plain version ``Wkv6Fn`` runs on CPU tensors)
-and ``ref.wkv6_bwd_chunked_ref`` (the two-level form ``csrc/wkv6_bwd.cu``
-runs: boundary states chunk by chunk, then every chunk from its two
-boundary states, dw in the direct form) against ``jax.grad`` of
-``repro.models.rwkv.wkv6_chunked`` and against float64 autograd of the
-sequential recurrence (with an initial state and a final state cotangent,
-at moderate and at strong decays, where only the sequential form is
-finite), and against each other at a ragged T; ``kernels.wkv6.Wkv6Fn`` on
-CPU tensors against autograd of ``ref.wkv6_chunked_ref``; the backward's
-launch plan (``plan.wkv6_bwd_plan``) and its wrapper's refusals.  The CUDA
-kernels themselves run only on the card (``chip_smoke.py`` phase c holds
-them to the plain version there).  Inputs come from seeded numpy
-generators.
+``ref.wkv6_bwd_ref`` (the plain version the ``wkv6`` operator runs on CPU
+tensors) and ``ref.wkv6_bwd_chunked_ref`` (the two-level form
+``csrc/wkv6_bwd.cu`` runs: boundary states chunk by chunk, then every
+chunk from its two boundary states, dw in the direct form) against
+``jax.grad`` of ``repro.models.rwkv.wkv6_chunked`` and against float64
+autograd of the sequential recurrence (with an initial state and a final
+state cotangent, at moderate and at strong decays, where only the
+sequential form is finite), and against each other at a ragged T;
+``kernels.wkv6.wkv6_op`` on CPU tensors against autograd of
+``ref.wkv6_chunked_ref``; the backward's launch plan
+(``plan.wkv6_bwd_plan``) and its wrapper's refusals.  The CUDA kernels
+themselves run only on the card (``chip_smoke.py`` phase c holds them to
+the plain version there).  Inputs come from seeded numpy generators.
 
 Tolerances, each relative to 1 + the largest entry of the reference:
 1e-5 against ``jax.grad`` of the chunked form (float32 sums in another
@@ -230,10 +230,11 @@ def _rows(*xs, H):
 @pytest.mark.parametrize("with_state", [False, True])
 def test_wkv6_fn_grads_match_autograd_of_chunked_ref(with_state,
                                                      monkeypatch):
-    """``Wkv6Fn`` on CPU tensors: its outputs equal ``wkv6_chunked_ref``'s
-    and its gradients autograd's through it, within 1e-5.  An unused final
-    state sends no cotangent (the backward gets None, not zeros); dS_0
-    comes back exactly when the state requires grad."""
+    """The ``wkv6`` operator on CPU tensors: its outputs equal
+    ``wkv6_chunked_ref``'s and its gradients autograd's through it,
+    within 1e-5.  An unused final state sends no cotangent (the backward
+    gets None, not zeros); dS_0 comes back exactly when the state requires
+    grad."""
     B, H, T, K, V = 2, 2, 37, 16, 8
     r, k, v, w, u, s0, do, dS = _inputs(B, H, T, K, V, seed=5)
     xs = [t.requires_grad_() for t in _t(r, k, v, w, u)]
@@ -341,7 +342,8 @@ def test_wkv6_bwd_plan_rejects_what_the_kernel_cannot_take():
 def test_wkv6_bwd_wrapper_raises_and_never_falls_back(case, match):
     """The backward's wrapper refuses what the kernel cannot take, and a
     well-formed call on CPU tensors raises at the device check instead of
-    taking the plain version (``Wkv6Fn`` is the entry that does)."""
+    taking the plain version (the ``wkv6`` operator is the entry that
+    does)."""
     BH, T, K, V = 4, 5, 16, 8
     r, k, w = (torch.zeros((BH, T, K), dtype=torch.bfloat16)
                for _ in range(3))

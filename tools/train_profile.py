@@ -123,7 +123,7 @@ def main(argv=None) -> int:
         wall = time.perf_counter() - t0
     # the device's own rows (kernels, copies): a host op's row also carries
     # as self time a kernel launched outside any aten op inside it (the
-    # WKV's ctypes launches inside Wkv6Fn), which would count it twice
+    # WKV's ctypes launches inside its operator), which would count it twice
     rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     kernels = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
