@@ -37,7 +37,15 @@ exits non-zero):
      the SM clock and power beside ``matmul`` and its library call; the
      GEMM kernels and ``coded_matvec`` against their plain versions at
      ragged, unaligned and split-K edge shapes, and repeated calls of
-     each at its main shapes bit-equal; ``coded_matvec`` at
+     each at its main shapes bit-equal; ``coded_matvec``'s wide route
+     (more than 8 columns summed in float64, on the FP64 tensor cores) at
+     C 9 / 32 / 64 / 65 x K 128 / 2048 / 8192 x 1-24 tiles in both input
+     types, 128 rows launched alone bit-equal to the whole launch's, 16
+     calls bit-equal; row 2t's trunk stages at C = 4 and 32 with their
+     route, timed beside the parent's 8-column launches (P / F); the
+     encode's float32 stream route ``torch.equal`` to the copy_prefix +
+     sgemm route at 2^26 + 3 and 2^26 columns, per-task G and B > 1;
+     ``coded_matvec`` at
      deepseek-v3-671b's head tiles (L = 129 536, K = 7 168, C = 4) and
      the parity kernels at phase n's frozen DeepSeek solve; then the
      decode's two routes for a parity minor on a synthetic head plan
@@ -103,7 +111,9 @@ exits non-zero):
      the coded gradient
      aggregation (4 groups of 2 rows, 6 shards encoded by the
      ``mds_encode`` kernel's float32 route, 4 arrived) gated against the
-     plain float32 sum, its int8 variant printed;
+     plain float32 sum, its int8 variant printed (row 5g after the
+     counts: the stream route equal to the GEMM route on 2^28 columns,
+     P / F);
   p. rwkv6-7b trained at its published widths, cut to 8 of its 32
      repeats (bf16, AdamW, remat, phase o's stream and microbatches):
      the memory reckoning at phase o's peak per parameter; 6 steps (step
@@ -497,7 +507,7 @@ def phase_c(dev, deepseek_s: int) -> dict:
           f"{err32:.3e} against its plain version", flush=True)
     got = ops.coded_shard_matmul_batch(tiles, x).reshape(-1, BATCH)
     want = ref.coded_matvec_ref(flat, x, out_dtype=torch.float64)
-    print_matvec_plan("serving shape", flat, x)
+    print_matvec_plan("serving shape", flat, x, torch.float64)
     # the rows of a sum are fixed in order: every call gives the same bits
     repeat_equal("coded_matvec at the serving shape", got,
                  lambda: ops.coded_shard_matmul_batch(tiles, x).reshape(
@@ -527,7 +537,8 @@ def phase_c(dev, deepseek_s: int) -> dict:
     want = ref.coded_matvec_batch_ref(at, xb)
     err = max_err(got, want)
     tol = 1e-12 * (1 + float(want.abs().max()))
-    print_matvec_plan("batched executor shape", at, xb[..., None])
+    print_matvec_plan("batched executor shape", at, xb[..., None],
+                      torch.float64)
     repeat_equal("batched coded_matvec", got,
                  lambda: ops.coded_matvec_batch(at, xb))
     ms = time_ms(lambda: ops.coded_matvec_batch(at, xb))
@@ -552,21 +563,32 @@ def phase_c(dev, deepseek_s: int) -> dict:
     rows["coded_matvec"]["batched"] = dict(
         ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd[0],
         max_abs_err=err, queued_ms=q_ms, library_queued_ms=q_lib_ms)
-    # wider than one 8-column chunk: one counted launch per chunk
+    # wider than 8 columns: one counted launch of the wide route (float64
+    # sums), two 8-column launches for float32 sums
     from repro_torch.kernels import coded_matvec as cmv
     a12 = at[0, :4096]
     x12 = torch.randn((Lp, 12), generator=gen, device=dev,
                       dtype=torch.float64)
     n0 = cmv.LAUNCHES
     got = cmv.coded_matvec_cuda(a12, x12)
+    n12 = cmv.LAUNCHES - n0
     err12 = max_err(got, ref.coded_matvec_ref(a12, x12))
-    print(f"[c] coded_matvec 12 columns: {cmv.LAUNCHES - n0} launches, "
-          f"max_abs_err={err12:.3e}", flush=True)
-    if cmv.LAUNCHES - n0 != 2 or err12 > tol:
-        raise AssertionError("coded_matvec over two column chunks")
-    del at, xb, got, want, a12, x12
+    a32, x32 = a12.float(), x12.float()
+    n0 = cmv.LAUNCHES
+    got32 = cmv.coded_matvec_cuda(a32, x32)
+    n32 = cmv.LAUNCHES - n0
+    err32 = max_err(got32, ref.coded_matvec_ref(a32, x32))
+    tol32 = 2e-3 * (1 + float(got32.abs().max()))
+    print(f"[c] coded_matvec 12 columns: float64 {n12} launch "
+          f"({matvec_route(a12, x12)}), max_abs_err={err12:.3e}; float32 "
+          f"{n32} launches ({matvec_route(a32, x32)}), max_abs_err="
+          f"{err32:.3e}", flush=True)
+    if n12 != 1 or err12 > tol or n32 != 2 or err32 > tol32:
+        raise AssertionError("coded_matvec at 12 columns")
+    del at, xb, got, want, a12, x12, a32, x32, got32
     torch.cuda.empty_cache()
     coded_matvec_edge_sweep(dev)
+    wide_matvec_gates(dev)
 
     # -- mds_encode: the executor's 4 x parity (L x L) @ (L x L) float64 ----
     sq = float(np.sqrt(Lp))
@@ -670,6 +692,8 @@ def phase_c(dev, deepseek_s: int) -> dict:
                              "repeatable")
     del g, zt, got, want
     torch.cuda.empty_cache()
+
+    stream_encode_gates(dev)
 
     # -- counter_parity_rows: one 256-row parity block, bit-equal ----------
     key = (0x1234ABCD, 0x9E3779B8)
@@ -957,9 +981,14 @@ def decode_route_rows(dev) -> None:
 def trunk_matvec_rows(dev, gen) -> dict:
     """``coded_matvec`` at phase l's packed trunk stages (ragged stage
     rows in 128-row tiles, K up to 8192), float64 sums, against its plain
-    version."""
+    version; each row's route, and the wrapper's time beside the parent's
+    route (the 8-column launches, ``route="narrow"``) through the same
+    wrapper on the same inputs, as P / F, timed in turns P F F P; beside
+    them the main path's entry (``ops.coded_shard_matmul_batch``, whose
+    host work a single call also times) and the library call."""
     import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.coded_matvec import coded_matvec_cuda
     out = {}
     for stage, (n, K) in TRUNK_STAGES.items():
         nt = -(-n // TILE)
@@ -971,24 +1000,55 @@ def trunk_matvec_rows(dev, gen) -> dict:
             want = ref.coded_matvec_ref(flat, x, out_dtype=torch.float64)
             err = max_err(got, want)
             tol = 1e-12 * (1 + float(want.abs().max()))
+            old = coded_matvec_cuda(flat, x, out_dtype=torch.float64,
+                                    route="narrow")
+            if max_err(old, want) > tol:
+                raise AssertionError(f"coded_matvec's 8-column launches at "
+                                     f"the trunk stage {stage} disagree")
+
+            def parent():
+                return coded_matvec_cuda(flat, x, out_dtype=torch.float64,
+                                         route="narrow")
+
+            def change():
+                return coded_matvec_cuda(flat, x, out_dtype=torch.float64)
+            turns = {"P": [], "F": []}
+            for who in "PFFP":
+                fn = parent if who == "P" else change
+                turns[who].append((time_ms(fn, 9), time_queued_ms(fn),
+                                   time_graph_ms(fn)))
+            ms, q_ms, g_ms = (min(v[i] for v in turns["F"])
+                              for i in range(3))
+            p_ms, p_q_ms, p_g_ms = (min(v[i] for v in turns["P"])
+                                    for i in range(3))
             row = dict(
-                ms=time_ms(lambda: ops.coded_shard_matmul_batch(tiles, x)),
-                queued_ms=time_queued_ms(
-                    lambda: ops.coded_shard_matmul_batch(tiles, x)),
+                route=matvec_route(flat, x, torch.float64),
+                ms=ms, queued_ms=q_ms, graph_ms=g_ms, parent_ms=p_ms,
+                parent_queued_ms=p_q_ms, parent_graph_ms=p_g_ms,
+                ops_ms=time_ms(lambda: ops.coded_shard_matmul_batch(tiles,
+                                                                    x), 9),
                 plain_ms=time_ms(lambda: ref.coded_matvec_ref(
                     flat, x, out_dtype=torch.float64)),
-                library_ms=time_ms(lambda: torch.matmul(flat, x)),
+                library_ms=time_ms(lambda: torch.matmul(flat, x), 9),
+                library_queued_ms=time_queued_ms(
+                    lambda: torch.matmul(flat, x)),
+                library_graph_ms=time_graph_ms(
+                    lambda: torch.matmul(flat, x)),
                 bound_ms=bound(4.0 * (nt * TILE * K + K * C)
                                + 8.0 * nt * TILE * C,
                                [2.0 * nt * TILE * K * C
                                 / F64_FLOP_PER_S])[0],
                 max_abs_err=err)
             print(f"[c] coded_matvec trunk {stage} ({n} rows in {nt} tiles,"
-                  f" K {K}, C {C}): max_abs_err={err:.3e} (tol {tol:.3e})"
-                  f" kernel {row['ms']:.4f} ms, queued "
-                  f"{row['queued_ms']:.4f}, plain {row['plain_ms']:.4f}, "
-                  f"library {row['library_ms']:.4f}, bound "
-                  f"{row['bound_ms']:.4f} ms", flush=True)
+                  f" K {K}, C {C}, route {row['route']}): max_abs_err="
+                  f"{err:.3e} (tol {tol:.3e}) P / F kernel {p_ms:.4f} / "
+                  f"{ms:.4f} ms, queued {p_q_ms:.4f} / {q_ms:.4f}, graph "
+                  f"{p_g_ms:.4f} / {g_ms:.4f}; through ops "
+                  f"{row['ops_ms']:.4f}; library {row['library_ms']:.4f}"
+                  f", queued {row['library_queued_ms']:.4f}, graph "
+                  f"{row['library_graph_ms']:.4f}; plain "
+                  f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} ms",
+                  flush=True)
             if err > tol:
                 raise AssertionError(f"coded_matvec at the trunk stage "
                                      f"{stage} disagrees ({err} > {tol})")
@@ -1207,24 +1267,40 @@ def sample_clocks(fn, seconds: float = 1.0) -> str:
             f"{len(samples)} samples")
 
 
-def print_matvec_plan(label: str, a, x) -> None:
-    """The launch plan of each 8-column chunk coded_matvec runs for ``a``
-    (R, K) or (B, R, K) against ``x`` (K, C) or (B, K, C)."""
+def matvec_route(a, x, out_dtype=None) -> str:
+    """The route(s) coded_matvec runs for ``a`` @ ``x`` summed in
+    ``out_dtype`` (default a's dtype)."""
     import torch
-    from repro_torch.kernels.plan import MV_COLS, matvec_plan
+    from repro_torch.kernels.plan import matvec_launches
+    B = a.shape[0] if a.dim() == 3 else 1
+    out_esz = a.element_size() if out_dtype is None \
+        else torch.tensor([], dtype=out_dtype).element_size()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return "+".join(sorted({p.route for _, p in matvec_launches(
+        a.element_size(), a.shape[-2], a.shape[-1], x.shape[-1], B, sms,
+        out_esz)}))
+
+
+def print_matvec_plan(label: str, a, x, out_dtype=None) -> None:
+    """The launch plan of each column chunk coded_matvec runs for ``a``
+    (R, K) or (B, R, K) against ``x`` (K, C) or (B, K, C), summed in
+    ``out_dtype`` (default a's dtype)."""
+    import torch
+    from repro_torch.kernels.plan import matvec_launches
     B = a.shape[0] if a.dim() == 3 else 1
     R, K = a.shape[-2:]
     C = x.shape[-1]
+    out_esz = a.element_size() if out_dtype is None \
+        else torch.tensor([], dtype=out_dtype).element_size()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for c0 in range(0, C, MV_COLS):
-        p = matvec_plan(a.element_size(), R, K, min(MV_COLS, C - c0), B,
-                        sms)
+    for c0, p in matvec_launches(a.element_size(), R, K, C, B, sms, out_esz):
         waves = p.blocks / (p.blocks_per_sm * sms)
         print(f"[c] plan coded_matvec {label} (columns {c0}-"
-              f"{c0 + p.cc - 1}): {p.route}, grid {p.grid} = {p.blocks} "
-              f"blocks of {p.threads} threads ({waves:.2f} waves of "
-              f"{p.blocks_per_sm} an SM), {p.rows_per_block} rows a block, "
-              f"X slab {p.slab_bytes} B", flush=True)
+              f"{c0 + p.cc - 1}): {p.route}, grid {p.grid} x {p.splits} K "
+              f"slabs of {p.k_span or K} = {p.blocks} blocks of {p.threads} "
+              f"threads ({waves:.2f} waves of {p.blocks_per_sm} an SM), "
+              f"{p.rows_per_block} rows a block, X slab {p.slab_bytes} B",
+              flush=True)
 
 
 #: phase c's coded_matvec edge shapes: (B, R, K, C) -- ragged R (not a
@@ -1237,15 +1313,13 @@ MATVEC_EDGES = ((1, 1237, 2, 1), (4, 1237, 6, 3), (1, 4099, 10002, 1),
 
 def coded_matvec_edge_sweep(dev) -> None:
     """coded_matvec against its plain version at ragged shapes, in all
-    three type pairs and both routes: float64 outputs at 1e-12, float32
+    three type pairs and all three routes: float64 outputs at 1e-12, float32
     outputs at 2e-3 (the reference's kernel tolerance), relative to 1 +
     max |want|; every call repeated bit for bit."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.coded_matvec import coded_matvec_cuda
-    from repro_torch.kernels.plan import MV_COLS, matvec_plan
     gen = torch.Generator(device=dev).manual_seed(5)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     t0 = time.perf_counter()
     routes, worst, n = set(), {}, 0
     for B, R, K, C in MATVEC_EDGES:
@@ -1275,17 +1349,123 @@ def coded_matvec_edge_sweep(dev) -> None:
                          lambda: coded_matvec_cuda(a, x, out_dtype=to), 2)
             kind = f"{str(ti).split('.')[-1]} -> {str(to).split('.')[-1]}"
             worst[kind] = max(worst.get(kind, 0.0), err / tol)
-            routes |= {matvec_plan(a.element_size(), R, Kp,
-                                   min(MV_COLS, C - c0), B, sms).route
-                       for c0 in range(0, C, MV_COLS)}
+            routes |= set(matvec_route(a, x, to).split("+"))
             n += 1
     torch.cuda.synchronize()
-    if routes != {"staged", "direct"}:
+    if routes != {"staged", "direct", "wide"}:
         raise AssertionError(f"coded_matvec edge sweep took only {routes}")
-    print(f"[c] coded_matvec edge sweep: {n} shapes x types on both routes "
+    print(f"[c] coded_matvec edge sweep: {n} shapes x types on the "
+          f"{sorted(routes)} routes "
           f"agree with the plain version (largest err / tol "
           f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} }) and repeat "
           f"bit for bit, in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+#: the wide route's gates: columns (across the 8- and 64-column chunk
+#: edges), contraction widths (one slab, 8 slabs of 256, 8 slabs of 1024)
+#: and row counts (1 to 24 tiles of 128, the last one ragged)
+WIDE_COLS = (9, 32, 64, 65)
+WIDE_KS = (128, 2048, 8192)
+WIDE_TILES = (1, 7, 24)
+
+
+def wide_matvec_gates(dev) -> None:
+    """The wide coded_matvec route (C > 8, float64 sums) against its plain
+    version at 1e-12 x (1 + max |want|), float32 -> float64 and float64 ->
+    float64, over WIDE_COLS x WIDE_KS x WIDE_TILES; 128 rows launched
+    alone bit-equal to the same rows of the whole launch (the slabs are a
+    function of K alone, so the packing layer may re-bucket rows); 16
+    repeated calls bit-equal at row 2t's ``down`` shape."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.coded_matvec import coded_matvec_cuda
+    gen = torch.Generator(device=dev).manual_seed(6)
+    t0 = time.perf_counter()
+    worst, n = 0.0, 0
+    for ti in (torch.float32, torch.float64):
+        for C in WIDE_COLS:
+            for K in WIDE_KS:
+                for nt in WIDE_TILES:
+                    R = nt * TILE - (37 if nt > 1 else 0)
+                    a = torch.randn((R, K), generator=gen, device=dev,
+                                    dtype=ti)
+                    x = torch.randn((K, C), generator=gen, device=dev,
+                                    dtype=ti)
+                    got = coded_matvec_cuda(a, x, out_dtype=torch.float64)
+                    want = ref.coded_matvec_ref(a, x,
+                                                out_dtype=torch.float64)
+                    err = max_err(got, want)
+                    tol = 1e-12 * (1 + float(want.abs().max()))
+                    tag = (f"coded_matvec wide R {R} K {K} C {C} "
+                           f"{str(ti).split('.')[-1]} -> float64")
+                    if matvec_route(a, x, torch.float64) != "wide":
+                        raise AssertionError(f"{tag}: not the wide route")
+                    if err > tol:
+                        raise AssertionError(f"{tag}: disagrees ({err} > "
+                                             f"{tol})")
+                    worst = max(worst, err / tol)
+                    if R > TILE:
+                        lo = R // 2 - 45        # off every tile boundary
+                        alone = coded_matvec_cuda(
+                            a[lo:lo + TILE].contiguous(), x,
+                            out_dtype=torch.float64)
+                        if not torch.equal(alone, got[lo:lo + TILE]):
+                            raise AssertionError(f"{tag}: rows {lo}.."
+                                                 f"{lo + TILE - 1} launched "
+                                                 f"alone differ")
+                    n += 1
+    a = torch.randn((2048, 8192), generator=gen, device=dev) * 0.02
+    x = torch.randn((8192, 32), generator=gen, device=dev)
+    repeat_equal("coded_matvec wide at the down shape",
+                 coded_matvec_cuda(a, x, out_dtype=torch.float64),
+                 lambda: coded_matvec_cuda(a, x, out_dtype=torch.float64))
+    torch.cuda.synchronize()
+    print(f"[c] coded_matvec wide route: {n} shapes agree with the plain "
+          f"version (largest err / tol {worst:.3g}), 128 rows launched "
+          f"alone equal the whole launch's bit for bit, 16 calls at the "
+          f"down shape bit-equal, in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+#: the stream encode's gates: (tasks, A rows, computed rows, columns,
+#: per-task G): row 5g's 4 -> 2 parity rows at 2^26 + 3 columns (S ragged:
+#: the 4-byte accesses) and 2^26 (16-byte vectors), per-task G over 3
+#: tasks, a shared G over 2 tasks with 5 computed rows of 3, and 8 of 8
+#: rows unaligned in S
+STREAM_GATES = ((1, 4, 2, 2 ** 26 + 3, False), (1, 4, 2, 2 ** 26, False),
+                (3, 4, 2, 1_000_003, True), (2, 3, 5, 4096, False),
+                (1, 8, 8, 777, True))
+
+
+def stream_encode_gates(dev) -> None:
+    """The float32 stream route of ``mds_encode`` ``torch.equal`` to the
+    copy_prefix + sgemm route on the same inputs, its systematic rows A
+    bit for bit, at STREAM_GATES."""
+    import torch
+    from repro_torch.kernels.mds_encode import mds_encode_cuda
+    from repro_torch.kernels.plan import encode_plan
+    gen = torch.Generator(device=dev).manual_seed(7)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t0 = time.perf_counter()
+    for B, L, M, S, per_task in STREAM_GATES:
+        a = torch.randn((B, L, S), generator=gen, device=dev)
+        g = torch.randn((B, L + M, L) if per_task else (L + M, L),
+                        generator=gen, device=dev)
+        tag = (f"mds_encode stream B {B} ({L + M} x {L}) @ ({L} x {S})"
+               f"{' per-task G' if per_task else ''}")
+        if encode_plan("f32", M, S, L, B, sms).route != "stream":
+            raise AssertionError(f"{tag}: not the stream route")
+        got = mds_encode_cuda(g, a)
+        old = mds_encode_cuda(g, a, route="gemm")
+        if not (torch.equal(got, old) and torch.equal(got[:, :L], a)):
+            raise AssertionError(f"{tag}: differs from the GEMM route "
+                                 f"({max_err(got, old)})")
+        del a, g, got, old
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"[c] mds_encode stream route: {len(STREAM_GATES)} shapes equal "
+          f"to the copy_prefix + sgemm route bit for bit (torch.equal), in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def print_plan(label: str, dtype: str, M: int, N: int, K: int,
@@ -3154,18 +3334,32 @@ def _card_batch(stream, step: int, dev) -> dict:
 
 
 def coded_grads_row(dev, state: dict) -> dict:
-    """Row 5g: the ``mds_encode`` kernel (float32 route) at the
-    coded-gradient shape, (n x k) @ (k x D), against its plain version,
-    timed single and queued beside the library call of the same work and
-    the parity rows alone, and the byte bound."""
+    """Row 5g: the ``mds_encode`` kernel (its float32 stream route) at the
+    coded-gradient shape, (n x k) @ (k x D), against its plain version and
+    equal to the parent's copy_prefix + sgemm route on the first 2^28
+    columns, timed single and queued beside the parent's route (P / F, in
+    turns P F F P), the library call of the same work and the parity rows
+    alone, and the byte bound."""
     import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.mds_encode import mds_encode_cuda
+    from repro_torch.kernels.plan import encode_plan
     from repro_torch.runtime import coded_grads
     X = coded_grads.flatten_grads(state.pop("trees"))[0]
     G = state["G"]
     k, D = X.shape
     n = G.shape[0]
     torch.cuda.empty_cache()
+    plan = encode_plan("f32", n - k, D, k, 1,
+                       torch.cuda.get_device_properties(0)
+                       .multi_processor_count)
+    route = plan.route
+    head = X[:, :2 ** 28][None].contiguous()
+    if not torch.equal(mds_encode_cuda(G, head),
+                       mds_encode_cuda(G, head, route="gemm")):
+        raise AssertionError("coded gradients: the stream encode differs "
+                             "from the GEMM route")
+    del head
     got = ops.mds_encode(G, X)
     if not torch.equal(got[:k], X):
         raise AssertionError("coded gradients: the systematic rows are not "
@@ -3178,8 +3372,17 @@ def coded_grads_row(dev, state: dict) -> dict:
         top = max(top, float(want.abs().max()))
     tol = 1e-6 * (1 + top)
     del got, want
-    ms = time_ms(lambda: ops.mds_encode(G, X), 3)
-    q_ms = time_queued_ms(lambda: ops.mds_encode(G, X), 5)
+    X3 = X[None]
+
+    def parent():
+        return mds_encode_cuda(G, X3, route="gemm")
+    turns = {"P": [], "F": []}
+    for who in "PFFP":
+        fn = parent if who == "P" else (lambda: ops.mds_encode(G, X))
+        turns[who].append((time_ms(fn, 3), time_queued_ms(fn, 5)))
+        torch.cuda.empty_cache()
+    ms, q_ms = (min(v[i] for v in turns["F"]) for i in range(2))
+    p_ms, p_q_ms = (min(v[i] for v in turns["P"]) for i in range(2))
     torch.cuda.empty_cache()
     plain_ms = time_ms(lambda: torch.cat(
         [X, ref.mds_encode_ref(G[k:], X)]), 3)
@@ -3187,19 +3390,22 @@ def coded_grads_row(dev, state: dict) -> dict:
     par_ms = time_ms(lambda: G[k:] @ X, 3)
     torch.cuda.empty_cache()
     bnd = bound(4.0 * (k + n) * D, [2.0 * (n - k) * k * D / F32_FLOP_PER_S])
-    print_plan("mds_encode float32 coded-gradient shape", "f32", n - k, D, k)
+    print(f"[o] plan mds_encode float32 coded-gradient shape: {plan}",
+          flush=True)
     print(f"[o] row 5g, mds_encode float32 at the coded-gradient shape "
-          f"({n} x {k}) @ ({k} x {D}): max_abs_err={err:.3e} (tol "
-          f"{tol:.3e}) kernel {ms:.3f} ms, queued {q_ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, library (cat + parity matmul) {lib_ms:.3f} "
-          f"ms, library on the parity rows {par_ms:.3f} ms, bound "
-          f"{bnd[0]:.3f} ms ({bnd[1]})", flush=True)
+          f"({n} x {k}) @ ({k} x {D}), route {route}: max_abs_err={err:.3e}"
+          f" (tol {tol:.3e}) P / F kernel {p_ms:.3f} / {ms:.3f} ms, queued "
+          f"{p_q_ms:.3f} / {q_ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+          f"(cat + parity matmul) {lib_ms:.3f} ms, library on the parity "
+          f"rows {par_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]})",
+          flush=True)
     if err > tol:
         raise AssertionError(f"mds_encode at the coded-gradient shape "
                              f"disagrees ({err} > {tol})")
-    del X, state["G"]
+    del X, X3, state["G"]
     torch.cuda.empty_cache()
-    return dict(k=k, n=n, D=D, ms=ms, queued_ms=q_ms, plain_ms=plain_ms,
+    return dict(route=route, k=k, n=n, D=D, ms=ms, queued_ms=q_ms,
+                parent_ms=p_ms, parent_queued_ms=p_q_ms, plain_ms=plain_ms,
                 library_ms=lib_ms, library_parity_ms=par_ms,
                 bound_ms=bnd[0], bound_by=bnd[1], max_abs_err=err)
 

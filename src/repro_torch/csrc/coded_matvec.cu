@@ -47,10 +47,61 @@
 //    row in increasing order and the lanes are combined by a fixed
 //    butterfly: a row's sum has one order whatever the plan, and repeated
 //    calls are bit-equal (no atomics).
-// C > 8 is split into column chunks by the host, one launch each; the C
-// entry point checks the plan and the residency it assumes.
+// float -> float with C > 8 is split into 8-column chunks by the host, one
+// launch each (the reference's float32 sums); the C entry point checks the
+// plan and the residency it assumes.
+//
+// The wide route (C > 8 columns, double out: the trunk stages' prefill at
+// C = 32, the W @ X half of the generated-parity product at a prefill).
+// There the product is a skinny GEMM: at C = 32 a float32 element of A
+// feeds 64 FLOP, so A's bytes (down: 2048 x 8192 floats, 67 MB, 20 us at
+// 3.35 TB/s) and the FP64 tensor cores (1.07 GFLOP, 16 us at 67 TFLOP/s)
+// bound it about equally, and a SIMT loop over 8-column chunks reads A
+// four times.  Design:
+//  * One launch computes up to 64 columns (plan.MV_WIDE_COLS; the host
+//    splits wider C into chunks of 64): A is read once a chunk.
+//  * Products on the FP64 tensor cores, mma.sync m16n8k8: a block of 8
+//    warps owns 128 rows, each warp one m16 tile against every n8 tile
+//    of the chunk (NT = 2, 4 or 8 compiled; the tiles past the chunk's
+//    columns are skipped).  A float32 element is widened once, in
+//    registers, when its fragment is read; a float x float product is
+//    exact in double, so the numerics are the narrow route's: exact
+//    products, double sums.
+//  * A 4-stage cp.async ring of 128-byte rows of A (32 floats or 16
+//    doubles a row; 16-byte copies that have L2 fetch 256 bytes) and the
+//    matching rows of X (16-byte copies where C allows: element copies
+//    cost down 10 us).  Each stage's X is widened once into a double tile
+//    [k][c] that every warp of the block reads: X is staged once a block
+//    and stage, never re-read per row pair.  A's 16-byte chunks are
+//    swapped on odd rows so that a fragment's reads are free of bank
+//    conflicts; the widened X rows are padded by one double for its
+//    8-byte reads.  Two blocks an SM (112 KB of shared memory at 64
+//    columns).
+//  * K is split into at most 8 slabs of a length that is a function of K
+//    and the element size alone (plan.matvec_plan): the blocks of one row
+//    range form a thread-block cluster along the slabs, each writes its
+//    128 x 8NT partial tile to its shared memory, and block z of the
+//    cluster sums the tile's rows [128 z, 128 (z + 1)) / splits over the
+//    cluster's shared memory (DSMEM) in slab order 0, 1, ... .  No atomics
+//    and no workspace: a row's sum has one order whatever R, the task
+//    count or the card, so a row computed among 2048 is the row computed
+//    alone and repeated calls are bit-equal.  At R = 2048 the grid is 16
+//    row blocks x 8 slabs.
+// What bounds it as built (PERF.md, row 2t): a warp spends ~1240 clocks a
+// stage on its 16 mmas and ~930 on the stage's wait, copies and X widening
+// between the two block barriers; the card fits 30 clusters of 8 at two
+// blocks an SM but only 15 at one, so a 16-cluster grid packs two blocks
+// onto some SMs and the cluster waits for them (without clusters the same
+// work took 41 us at down, against 53).  Measured slower: a producer
+// warpgroup feeding the mma warps through mbarriers (one block an SM), a
+// ring of 8 stages at one block an SM, two m16 tiles a warp with two k
+// groups, two accumulator sets a warp, and 64-row blocks (better at o and
+// down, worse at q/k/v and up/gate).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gemm_common.cuh"
 
 namespace {
 
@@ -288,6 +339,286 @@ int run(int route, const void* A, const void* X, void* Y, int B, int R,
                                   rows_per_block, 0, per_sm, st);
 }
 
+// -- the wide route ---------------------------------------------------------
+namespace wide {
+
+namespace cg = cooperative_groups;
+
+// plan.MV_WIDE_WARPS (rows a block: a warp's m16 tile each),
+// plan.MV_WIDE_COLS, plan.MV_WIDE_MAX_SPLITS
+constexpr int WARPS = 8, THREADS = WARPS * 32, BM = WARPS * 16;
+constexpr int COLS = 64, MAX_SPLITS = 8, STAGES = 4;
+// bytes of one row of A a stage holds: BK = 32 floats or 16 doubles
+constexpr int ROW_BYTES = 128;
+
+// NT n8 tiles of columns.  XV: X's rows are copied 16 bytes at a time (C
+// and c0 multiples of the vector, X aligned), else element by element.
+template <typename TI, int NT, bool XV>
+struct Tile {
+  static constexpr int BK = ROW_BYTES / (int)sizeof(TI);
+  static constexpr int CW = 8 * NT;                 // the n8 tiles' columns
+  static constexpr int A_BYTES = BM * ROW_BYTES;
+  static constexpr int X_ELEMS = BK * CW;           // X's stage [BK][CW], raw
+  static constexpr int STAGE_BYTES = A_BYTES + X_ELEMS * (int)sizeof(TI);
+  static constexpr int RING = STAGES * STAGE_BYTES;
+  static constexpr int XD_LD = CW + 1;              // doubles a widened X row
+  static constexpr int SMEM = RING + BK * XD_LD * 8;
+  static constexpr int RED_LD = CW + 2;             // doubles a partial row
+  // a 16-byte chunk c of an odd row sits at c ^ SW
+  static constexpr int SW = sizeof(TI) == 4 ? 4 : 1;
+  static constexpr int EPC = 16 / (int)sizeof(TI);  // elements a chunk
+  static_assert(BM * RED_LD * 8 <= RING, "the partial tile reuses the ring");
+  static_assert(X_ELEMS % THREADS == 0 && A_BYTES % (16 * THREADS) == 0,
+                "a stage's copies split evenly over the threads");
+};
+
+__device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[4],
+                                     const double (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// a 16-byte copy of A into the ring, read once: L2 fetches 256 bytes
+__device__ __forceinline__ void cp_async_a(void* smem, const void* src,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n"
+               ::"r"(s), "l"(src), "r"(src_bytes));
+}
+
+// Stage of slab step k0: A rows [row0, row0 + BM) x [k0, k0 + BK) and X
+// rows [k0, k0 + BK) x columns [c0, c0 + CW), zero past R, k_end and cc.
+template <typename TI, int NT, bool XV>
+__device__ __forceinline__ void load_stage(unsigned char* st, const TI* A,
+                                           const TI* X, int R, int K, int C,
+                                           int c0, int cc, int row0, int k0,
+                                           int k_end, int tid) {
+  using T = Tile<TI, NT, XV>;
+  constexpr int CPR = ROW_BYTES / 16;
+#pragma unroll
+  for (int i = 0; i < T::A_BYTES / 16 / THREADS; ++i) {
+    const int e = tid + i * THREADS, r = e / CPR, ch = e % CPR;
+    const int gr = row0 + r, gk = k0 + ch * T::EPC;
+    const bool ok = gr < R && gk < k_end;
+    cp_async_a(st + r * ROW_BYTES + ((ch ^ ((r & 1) * T::SW)) << 4),
+               ok ? A + (size_t)gr * K + gk : A, ok ? 16 : 0);
+  }
+  TI* xs = reinterpret_cast<TI*>(st + T::A_BYTES);
+  // a 16-byte vector past cc holds X's next columns, which no row keeps
+  constexpr int V = XV ? T::EPC : 1;
+#pragma unroll
+  for (int e = tid * V; e < T::X_ELEMS; e += THREADS * V) {
+    const int k = e / T::CW, c = e % T::CW;
+    const bool ok = k0 + k < k_end && c < cc;
+    gemm::cp_async<V * (int)sizeof(TI)>(
+        xs + e, ok ? X + (size_t)(k0 + k) * C + c0 + c : X,
+        ok ? V * (int)sizeof(TI) : 0);
+  }
+}
+
+// A's elements k = 4 kq .. 4 kq + 3 of stage row r, widened
+template <typename TI, int SW>
+__device__ __forceinline__ void load4(const unsigned char* as, int r, int kq,
+                                      double (&v)[4]) {
+  const unsigned char* row = as + r * ROW_BYTES;
+  if constexpr (sizeof(TI) == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(
+        row + ((kq ^ ((r & 1) * SW)) << 4));
+    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+  } else {
+    const double2 d0 = *reinterpret_cast<const double2*>(
+        row + (((2 * kq) ^ ((r & 1) * SW)) << 4));
+    const double2 d1 = *reinterpret_cast<const double2*>(
+        row + (((2 * kq + 1) ^ ((r & 1) * SW)) << 4));
+    v[0] = d0.x; v[1] = d0.y; v[2] = d1.x; v[3] = d1.y;
+  }
+}
+
+// Y_b[:, c0:c0+cc] of rows [128 x, 128 x + 128) over K slab y; the
+// cluster of a row block's slabs sums them.  Fragment k slots: lane (g, t)
+// holds k = 16 s + 4 t .. + 3 of k16 step s -- slots t and t + 4 of the
+// first k8 step are its k and k + 1, of the second k + 2 and k + 3.
+template <typename TI, int NT, bool XV>
+__global__ void __launch_bounds__(THREADS, 2)
+coded_matvec_wide_kernel(const TI* __restrict__ A, const TI* __restrict__ X,
+                         double* __restrict__ Y, int R, int K, int C, int c0,
+                         int cc, int splits, int k_span) {
+  using T = Tile<TI, NT, XV>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int task = blockIdx.z, row0 = blockIdx.x * BM, z = blockIdx.y;
+  A += (size_t)task * R * K;
+  X += (size_t)task * K * C;
+  Y += (size_t)task * R * C;
+  const int k_begin = z * k_span, k_end = min(K, k_begin + k_span);
+  const int n_slabs = k_end > k_begin ? (k_end - k_begin + T::BK - 1) / T::BK
+                                      : 0;
+  const int n_live = min(NT, (cc + 7) / 8);        // warp-uniform
+  double* xd = reinterpret_cast<double*>(smem + T::RING);
+
+  double acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.0;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_slabs)
+      load_stage<TI, NT, XV>(smem + s * T::STAGE_BYTES, A, X, R, K, C, c0,
+                             cc, row0, k_begin + s * T::BK, k_end, tid);
+    gemm::cp_async_commit();
+  }
+  const int r_lo = warp * 16 + g;
+  for (int kt = 0; kt < n_slabs; ++kt) {
+    gemm::cp_async_wait<STAGES - 2>();
+    __syncthreads();          // stage kt landed; every warp is done with kt-1
+    const int next = kt + STAGES - 1;
+    if (next < n_slabs)
+      load_stage<TI, NT, XV>(smem + (next % STAGES) * T::STAGE_BYTES, A, X,
+                             R, K, C, c0, cc, row0, k_begin + next * T::BK,
+                             k_end, tid);
+    gemm::cp_async_commit();
+    const unsigned char* as = smem + (kt % STAGES) * T::STAGE_BYTES;
+    const TI* xs = reinterpret_cast<const TI*>(as + T::A_BYTES);
+#pragma unroll
+    for (int i = 0; i < T::X_ELEMS / THREADS; ++i) {
+      const int e = tid + i * THREADS;
+      xd[(e / T::CW) * T::XD_LD + e % T::CW] = static_cast<double>(xs[e]);
+    }
+    __syncthreads();          // the widened X of stage kt is whole
+#pragma unroll
+    for (int s = 0; s < T::BK / 16; ++s) {
+      double lo[4], hi[4];
+      load4<TI, T::SW>(as, r_lo, 4 * s + t, lo);
+      load4<TI, T::SW>(as, r_lo + 8, 4 * s + t, hi);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const double a[4] = {lo[2 * h], hi[2 * h], lo[2 * h + 1],
+                             hi[2 * h + 1]};
+        const double* xk = xd + (16 * s + 4 * t + 2 * h) * T::XD_LD + g;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          if (j < n_live) {
+            const double b[2] = {xk[8 * j], xk[T::XD_LD + 8 * j]};
+            dmma(acc[j], a, b);
+          }
+      }
+    }
+  }
+
+  if (splits == 1) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + r_lo + 8 * h;
+      if (row >= R) continue;
+      double* yrow = Y + (size_t)row * C + c0;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = 8 * j + 2 * t;
+        if (c < cc) yrow[c] = acc[j][2 * h];
+        if (c + 1 < cc) yrow[c + 1] = acc[j][2 * h + 1];
+      }
+    }
+    return;
+  }
+  // the slab's partial tile into this block's shared memory, then the
+  // cluster's sum of every slab's tile in slab order
+  gemm::cp_async_wait<0>();
+  __syncthreads();
+  double* red = reinterpret_cast<double*>(smem);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<double2*>(red + (r_lo + 8 * h) * T::RED_LD + 8 * j +
+                                  2 * t) =
+          make_double2(acc[j][2 * h], acc[j][2 * h + 1]);
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int per = (BM + splits - 1) / splits;
+  const int rb = z * per, re = min(BM, rb + per);
+  for (int e = tid; e < (re - rb) * cc; e += THREADS) {
+    const int r = rb + e / cc, c = e % cc;
+    const int off = r * T::RED_LD + c;
+    double sum = cluster.map_shared_rank(red, 0)[off];
+    for (int q = 1; q < splits; ++q)
+      sum += cluster.map_shared_rank(red, q)[off];
+    if (row0 + r < R) Y[(size_t)(row0 + r) * C + c0 + c] = sum;
+  }
+  cluster.sync();             // no block leaves while its tile is read
+}
+
+template <typename TI, int NT, bool XV>
+int launch(const TI* A, const TI* X, double* Y, int B, int R, int K, int C,
+           int c0, int cc, int row_blocks, int splits, int k_span,
+           cudaStream_t st) {
+  using T = Tile<TI, NT, XV>;
+  auto kern = coded_matvec_wide_kernel<TI, NT, XV>;
+  static bool ready = false;          // the attribute, once an instantiation
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(row_blocks, splits, B);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = T::SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, A, X, Y, R, K, C,
+                                             c0, cc, splits, k_span);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename TI, bool XV>
+int run_nt(const TI* a, const TI* x, double* y, int B, int R, int K, int C,
+           int c0, int cc, int row_blocks, int splits, int k_span,
+           cudaStream_t st) {
+  if (cc <= 16)
+    return launch<TI, 2, XV>(a, x, y, B, R, K, C, c0, cc, row_blocks,
+                             splits, k_span, st);
+  if (cc <= 32)
+    return launch<TI, 4, XV>(a, x, y, B, R, K, C, c0, cc, row_blocks,
+                             splits, k_span, st);
+  return launch<TI, 8, XV>(a, x, y, B, R, K, C, c0, cc, row_blocks, splits,
+                           k_span, st);
+}
+
+template <typename TI>
+int run(const void* A, const void* X, void* Y, int B, int R, int K, int C,
+        int c0, int row_blocks, int splits, int k_span, cudaStream_t st) {
+  constexpr int EPC = 16 / (int)sizeof(TI);
+  const int cc = C - c0 < COLS ? C - c0 : COLS;
+  if (K % EPC ||
+      !gemm::plan_ok(K, splits, k_span, ROW_BYTES / (int)sizeof(TI)))
+    return (int)cudaErrorInvalidValue;
+  const TI* a = static_cast<const TI*>(A);
+  const TI* x = static_cast<const TI*>(X);
+  double* y = static_cast<double*>(Y);
+  // X's rows in 16-byte copies: every row start and c0 on the vector
+  if (C % EPC == 0 && c0 % EPC == 0 && gemm::aligned16(X))
+    return run_nt<TI, true>(a, x, y, B, R, K, C, c0, cc, row_blocks, splits,
+                            k_span, st);
+  return run_nt<TI, false>(a, x, y, B, R, K, C, c0, cc, row_blocks, splits,
+                           k_span, st);
+}
+
+}  // namespace wide
+
 }  // namespace
 
 extern "C" {
@@ -324,6 +655,32 @@ int repro_coded_matvec(int types, const void* A, const void* X, void* Y,
                                        per_sm, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The wide route: Y (B, R, C) double = A (B, R, K) @ X (B, K, C), row-major
+// and contiguous per task, columns [c0, min(c0 + 64, C)) in one launch
+// (the caller loops over 64-column chunks).  `types` 1 = float in, 2 =
+// double in.  The plan of kernels/plan.py's matvec_plan (route "wide"):
+// `row_blocks` = ceil(R / 128) blocks of 128 rows, `splits` <= 8 K slabs
+// of `k_span` (a multiple of 128 bytes of A's row) that cover K with none
+// empty, one cluster of `splits` blocks a row block.
+int repro_coded_matvec_wide(int types, const void* A, const void* X,
+                            void* Y, int B, int R, int K, int C, int c0,
+                            int row_blocks, int splits, int k_span,
+                            void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || R <= 0 || c0 < 0 || c0 >= C) return 0;
+  if (B > 65535) return (int)cudaErrorInvalidConfiguration;
+  if (row_blocks != (R + wide::BM - 1) / wide::BM || splits < 1 ||
+      splits > wide::MAX_SPLITS)
+    return (int)cudaErrorInvalidValue;
+  if (types == 1)
+    return wide::run<float>(A, X, Y, B, R, K, C, c0, row_blocks, splits,
+                            k_span, st);
+  if (types == 2)
+    return wide::run<double>(A, X, Y, B, R, K, C, c0, row_blocks, splits,
+                             k_span, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

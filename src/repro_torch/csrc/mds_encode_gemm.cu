@@ -53,6 +53,22 @@
 // output tiles in groups of eight tile rows (blocks resident together
 // share panels of G and A in L2).  Each output element is a float64 sum of
 // exact float64 products in another order than a sequential loop.
+//
+// The float32 stream (kernels/plan.py's encode_plan: at most 8 computed
+// rows against at most 8 rows of A -- the coded-gradient encode, 2 parity
+// rows of 4 over D = 1.24e9 columns).  There the GEMM's 128 x 128 tile
+// computes 64x the rows it needs and reads A twice (the prefix copy, the
+// product); the function itself moves (K + L~) S floats and does 2 M K S
+// FLOP, ~1 FLOP a byte, so it is bound by HBM bytes alone: 49.5 GB, 14.8
+// ms at 3.35 TB/s.  One pass: each thread reads 16-byte vectors of the K
+// rows of A at its columns (read-once loads), writes them unchanged to the
+// systematic rows and the computed rows beside them, each output element
+// fmaf'd in k order from 0 -- the per-element order of the sgemm core at
+// K <= its BK, so the result equals the GEMM route's.  G's computed rows
+// sit in shared memory (one broadcast read a k), shared or one per task;
+// every element offset is 64-bit (K S is 4.9e9 floats at that shape).  S
+// not a multiple of 4, or an A or output base not 16-byte aligned, takes
+// the same kernel with 4-byte accesses, so no load reads past a row.
 #include <cuda.h>
 
 #include "gemm_common.cuh"
@@ -425,6 +441,79 @@ int copy_prefix(const T* A, T* out, int B, size_t n, size_t out_bstride,
   return (int)cudaGetLastError();
 }
 
+// -- the float32 stream route ----------------------------------------------
+namespace stream_route {
+
+// plan.ENC_STREAM_THREADS, plan.ENC_STREAM_MAX_ROWS, plan.ENC_STREAM_MAX_K
+constexpr int THREADS = 256, MAX_ROWS = 8, MAX_K = 8;
+
+template <int VEC> struct Vec;
+template <> struct Vec<4> {
+  using T = float4;
+  static __device__ __forceinline__ T load(const float* p) {
+    return __ldcs(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ void store(float* p, T v) {
+    __stcs(reinterpret_cast<float4*>(p), v);
+  }
+  static __device__ __forceinline__ T fmadd(float g, T a, T c) {
+    return make_float4(fmaf(g, a.x, c.x), fmaf(g, a.y, c.y),
+                       fmaf(g, a.z, c.z), fmaf(g, a.w, c.w));
+  }
+};
+template <> struct Vec<1> {
+  using T = float;
+  static __device__ __forceinline__ T load(const float* p) {
+    return __ldcs(p);
+  }
+  static __device__ __forceinline__ void store(float* p, T v) {
+    __stcs(p, v);
+  }
+  static __device__ __forceinline__ T fmadd(float g, T a, T c) {
+    return fmaf(g, a, c);
+  }
+};
+
+// out_b rows [0, copy) = A_b's rows (copy = L or 0), rows [copy, copy + M)
+// = G_b's rows [copy, copy + M) @ A_b; VEC columns a step of a thread
+template <int VEC>
+__global__ void __launch_bounds__(THREADS)
+encode_stream_kernel(const float* __restrict__ G, long long g_bstride,
+                     const float* __restrict__ A, float* __restrict__ out,
+                     int Lt, int L, long long S, int copy, int M) {
+  using V = Vec<VEC>;
+  __shared__ float gs[MAX_ROWS * MAX_K];
+  const int b = blockIdx.y;
+  const float* gb = G + b * g_bstride + (long long)copy * L;
+  for (int i = threadIdx.x; i < M * L; i += THREADS) gs[i] = gb[i];
+  __syncthreads();
+  const float* ab = A + (long long)b * L * S;
+  float* ob = out + (long long)b * Lt * S;
+  const long long n = S / VEC;
+  for (long long q = blockIdx.x * (long long)THREADS + threadIdx.x; q < n;
+       q += (long long)gridDim.x * THREADS) {
+    const long long col = q * VEC;
+    typename V::T a[MAX_K];
+#pragma unroll
+    for (int k = 0; k < MAX_K; ++k)
+      if (k < L) a[k] = V::load(ab + k * S + col);
+#pragma unroll
+    for (int k = 0; k < MAX_K; ++k)
+      if (k < copy) V::store(ob + k * S + col, a[k]);
+#pragma unroll
+    for (int m = 0; m < MAX_ROWS; ++m) {
+      if (m >= M) break;
+      typename V::T acc{};
+#pragma unroll
+      for (int k = 0; k < MAX_K; ++k)
+        if (k < L) acc = V::fmadd(gs[m * L + k], a[k], acc);
+      V::store(ob + (copy + m) * S + col, acc);
+    }
+  }
+}
+
+}  // namespace stream_route
+
 }  // namespace
 
 extern "C" {
@@ -476,6 +565,34 @@ int repro_mds_encode(int f64, const void* G, long long g_stride,
   return sgemm::launch(g, g_stride, L, a, a_bstride, S, o + off_c, c_bstride,
                        S, static_cast<float*>(ws), M, S, L, B, splits,
                        k_span, st);
+}
+
+// The float32 stream route of the same encode (kernels/plan.py's
+// encode_plan, route "stream"): out (B, L~, S) from G (L~, L) or (B, L~, L)
+// and A (B, L, S) as above, at most 8 computed rows (L~ - L when
+// systematic, else L~) and at most 8 rows of A, in one pass over A.  The
+// grid is `blocks` x B.
+int repro_mds_encode_stream(const void* G, long long g_stride, const void* A,
+                            void* out, int B, int Lt, int L, long long S,
+                            int systematic, int blocks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || Lt <= 0 || S <= 0) return 0;
+  if (B > 65535 || blocks < 1) return (int)cudaErrorInvalidConfiguration;
+  const int copy = systematic && Lt > L ? L : 0, M = Lt - copy;
+  namespace sr = stream_route;
+  if (L < 1 || L > sr::MAX_K || M < 1 || M > sr::MAX_ROWS)
+    return (int)cudaErrorInvalidValue;
+  const float* g = static_cast<const float*>(G);
+  const float* a = static_cast<const float*>(A);
+  float* o = static_cast<float*>(out);
+  const dim3 grid(blocks, B);
+  if (S % 4 == 0 && gemm::aligned16(a) && gemm::aligned16(o))
+    sr::encode_stream_kernel<4><<<grid, sr::THREADS, 0, st>>>(
+        g, g_stride, a, o, Lt, L, S, copy, M);
+  else
+    sr::encode_stream_kernel<1><<<grid, sr::THREADS, 0, st>>>(
+        g, g_stride, a, o, Lt, L, S, copy, M);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -31,8 +31,11 @@ def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
 
 
 def stream_ptr(device: torch.device) -> int:
-    """PyTorch's current stream on ``device`` as a raw pointer."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current stream on ``device`` as a raw pointer (read
+    without building a ``torch.cuda.Stream``: a launch's host work)."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(idx)
 
 
 def raise_on_error(kernel: str, err: int) -> None:

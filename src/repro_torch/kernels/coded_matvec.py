@@ -2,10 +2,12 @@
 ``repro.kernels.coded_matvec.coded_matvec_pallas``, with an optional task
 axis (the reference's ``vmap`` of it in ``ops.coded_matvec_batch``).
 
-The CUDA kernel is ``csrc/coded_matvec.cu`` (design notes there), launched
-on the plan of :func:`repro_torch.kernels.plan.matvec_plan`.  On a CPU
-tensor :func:`coded_matvec` runs the plain version; on a CUDA tensor it
-launches the kernel or raises.
+The CUDA kernels are in ``csrc/coded_matvec.cu`` (design notes there),
+launched on the plans of :func:`repro_torch.kernels.plan.matvec_launches`:
+the narrow SIMT routes, 8 columns a launch, and for more than 8 columns
+summed in float64 the wide route on the FP64 tensor cores, 64 columns a
+launch.  On a CPU tensor :func:`coded_matvec` runs the plain version; on a
+CUDA tensor it launches the kernels or raises.
 
 Types: float32 in → float32 out (the reference's numerics), float32 in →
 float64 out (products that feed an MDS decode: exact products, float64
@@ -19,7 +21,7 @@ import torch
 
 from . import _build
 from ._launch import I, P, check_cuda, raise_on_error, sm_count, stream_ptr
-from .plan import MV_COLS, matvec_plan
+from .plan import matvec_launches
 from .ref import coded_matvec_ref
 
 __all__ = ["coded_matvec", "coded_matvec_cuda", "LAUNCHES"]
@@ -39,19 +41,27 @@ def _lib():
         lib.repro_coded_matvec.argtypes = [I, P, P, P, I, I, I, I, I, I, I,
                                            I, I, I, P]
         lib.repro_coded_matvec.restype = I
+        lib.repro_coded_matvec_wide.argtypes = [I, P, P, P, I, I, I, I, I,
+                                                I, I, I, P]
+        lib.repro_coded_matvec_wide.restype = I
         lib._typed = True
     return lib
 
 
 def coded_matvec_cuda(a: torch.Tensor, x: torch.Tensor, *,
-                      out_dtype: Optional[torch.dtype] = None
-                      ) -> torch.Tensor:
+                      out_dtype: Optional[torch.dtype] = None,
+                      route: Optional[str] = None) -> torch.Tensor:
     """Y = A @ X on the card: ``a`` (R, K) with ``x`` (K, C), or ``a``
-    (B, R, K) with ``x`` (B, K, C), one launch per 8 columns of X (the
-    task axis is in the grid), each on its :func:`matvec_plan`.
-    ``out_dtype`` defaults to the input dtype; K must be a multiple of the
-    16-byte vector width."""
+    (B, R, K) with ``x`` (B, K, C), one launch per column chunk of X (8
+    columns on the narrow routes, 64 on the wide; the task axis is in the
+    grid), each on its plan from :func:`matvec_launches`.  ``out_dtype``
+    defaults to the input dtype; K must be a multiple of the 16-byte
+    vector width.  ``route="narrow"`` keeps a float64-output product of
+    more than 8 columns on the 8-column launches, for holding the two
+    routes to each other on the same inputs."""
     global LAUNCHES
+    if route not in (None, "narrow"):
+        raise ValueError(f"coded_matvec: unknown route {route!r}")
     dev = a.device
     out_dtype = a.dtype if out_dtype is None else out_dtype
     types = _TYPES.get((a.dtype, out_dtype))
@@ -78,13 +88,19 @@ def coded_matvec_cuda(a: torch.Tensor, x: torch.Tensor, *,
     y = torch.empty(a.shape[:-1] + (C,), dtype=out_dtype, device=dev)
     if y.numel() == 0:
         return y
-    fn, st, sms = _lib().repro_coded_matvec, stream_ptr(dev), sm_count(dev)
-    for c0 in range(0, C, MV_COLS):  # one launch per 8-column chunk
-        p = matvec_plan(a.element_size(), R, K, min(MV_COLS, C - c0), B,
-                        sms)
-        err = fn(types, a.data_ptr(), x.data_ptr(), y.data_ptr(), B, R, K, C,
-                 c0, p.route_code, p.grid[0], p.rows_per_block, p.slab_bytes,
-                 p.blocks_per_sm, st)
+    lib, st = _lib(), stream_ptr(dev)
+    out_esz = a.element_size() if route == "narrow" else y.element_size()
+    for c0, p in matvec_launches(a.element_size(), R, K, C, B, sm_count(dev),
+                                 out_esz):
+        if p.route == "wide":
+            err = lib.repro_coded_matvec_wide(
+                types, a.data_ptr(), x.data_ptr(), y.data_ptr(), B, R, K, C,
+                c0, p.grid[0], p.splits, p.k_span, st)
+        else:
+            err = lib.repro_coded_matvec(
+                types, a.data_ptr(), x.data_ptr(), y.data_ptr(), B, R, K, C,
+                c0, p.route_code, p.grid[0], p.rows_per_block, p.slab_bytes,
+                p.blocks_per_sm, st)
         raise_on_error("coded_matvec", err)
         LAUNCHES += 1
     return y

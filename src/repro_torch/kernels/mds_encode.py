@@ -7,7 +7,8 @@ systematic prefix copied through and a task axis, as ``ops.mds_encode`` /
 the decode's substitution term (which the reference forms from whole
 ``counter_parity_rows_pallas`` blocks).
 
-The CUDA kernels are in ``csrc/mds_encode_gemm.cu`` and
+The CUDA kernels are in ``csrc/mds_encode_gemm.cu`` (the encode: GEMM
+tiles, or one float32 stream pass for a few rows against a few) and
 ``csrc/mds_encode.cu`` (design notes there).  On CPU tensors the wrappers
 run the plain versions; on CUDA tensors they launch the kernels or raise.
 """
@@ -22,13 +23,13 @@ from . import _build
 from ._launch import (F32, I, P, U32, check_cuda, raise_on_error, sm_count,
                       stream_ptr)
 from .coded_matvec import coded_matvec
-from .plan import gemm_plan
+from .plan import encode_plan, gemm_plan
 from .ref import (counter_parity_rows_ref, gen_parity_ref, mds_encode_ref,
                   parity_contract_ref)
 
-__all__ = ["mds_encode_dev", "counter_parity_rows_dev", "gen_parity_matvec",
-           "parity_contract_dev", "ENCODE_LAUNCHES", "ROWS_LAUNCHES",
-           "GEN_LAUNCHES", "CONTRACT_LAUNCHES"]
+__all__ = ["mds_encode_dev", "mds_encode_cuda", "counter_parity_rows_dev",
+           "gen_parity_matvec", "parity_contract_dev", "ENCODE_LAUNCHES",
+           "ROWS_LAUNCHES", "GEN_LAUNCHES", "CONTRACT_LAUNCHES"]
 
 #: launches of the encode GEMM since the last reset
 ENCODE_LAUNCHES = 0
@@ -63,8 +64,24 @@ def _gemm_lib():
         lib.repro_mds_encode.argtypes = [I, P, ctypes.c_longlong, P, P, I, I,
                                          I, I, I, I, I, I, P, P]
         lib.repro_mds_encode.restype = I
+        lib.repro_mds_encode_stream.argtypes = [
+            P, ctypes.c_longlong, P, P, I, I, I, ctypes.c_longlong, I, I, P]
+        lib.repro_mds_encode_stream.restype = I
         lib._typed = True
     return lib
+
+
+def _encode_shapes(g: torch.Tensor, a: torch.Tensor) -> Tuple[int, ...]:
+    if a.dim() != 3 or g.dim() not in (2, 3):
+        raise ValueError(f"mds_encode: expected a (B, L, S) and g (L~, L) or "
+                         f"(B, L~, L), got {tuple(a.shape)}, "
+                         f"{tuple(g.shape)}")
+    B, L, S = a.shape
+    Lt = g.shape[-2]
+    if g.shape[-1] != L or (g.dim() == 3 and g.shape[0] != B):
+        raise ValueError(f"mds_encode: g {tuple(g.shape)} does not match a "
+                         f"{tuple(a.shape)}")
+    return B, L, S, Lt
 
 
 def mds_encode_dev(g: torch.Tensor, a: torch.Tensor, *,
@@ -75,39 +92,55 @@ def mds_encode_dev(g: torch.Tensor, a: torch.Tensor, *,
 
     With ``systematic`` and L̃ > L, G's top L rows are taken to be I_L: the
     first L output rows are A's, bit-exact, and only the parity rows are
-    multiplied.  One call for the whole stack, on the launch plan of
-    :func:`repro_torch.kernels.plan.gemm_plan` for the (L̃ - L or L̃) x L
-    @ L x S products."""
-    global ENCODE_LAUNCHES
-    if a.dim() != 3 or g.dim() not in (2, 3):
-        raise ValueError(f"mds_encode: expected a (B, L, S) and g (L~, L) or "
-                         f"(B, L~, L), got {tuple(a.shape)}, "
-                         f"{tuple(g.shape)}")
-    B, L, S = a.shape
-    Lt = g.shape[-2]
-    if g.shape[-1] != L or (g.dim() == 3 and g.shape[0] != B):
-        raise ValueError(f"mds_encode: g {tuple(g.shape)} does not match a "
-                         f"{tuple(a.shape)}")
-    sys = systematic and Lt > L
-    dev = a.device
-    if dev.type == "cpu":
-        if not sys:
+    multiplied.  CPU tensors take the plain version, CUDA tensors
+    :func:`mds_encode_cuda`."""
+    B, L, S, Lt = _encode_shapes(g, a)
+    if a.device.type == "cpu":
+        if not (systematic and Lt > L):
             return mds_encode_ref(g, a)
         return torch.cat([a, mds_encode_ref(g[..., L:, :], a)], dim=1)
+    return mds_encode_cuda(g, a, systematic=systematic)
+
+
+def mds_encode_cuda(g: torch.Tensor, a: torch.Tensor, *,
+                    systematic: bool = True,
+                    route: Optional[str] = None) -> torch.Tensor:
+    """:func:`mds_encode_dev` on the card: one launch for the whole stack
+    on the plan of :func:`repro_torch.kernels.plan.encode_plan` for the
+    (L̃ - L or L̃) x L @ L x S products -- the float32 stream for a few
+    rows against a few, else the GEMM tiles (the systematic prefix copied
+    beside them).  ``route`` ("stream" or "gemm") overrides the plan's
+    choice, for holding one route to the other on the same inputs."""
+    global ENCODE_LAUNCHES
+    B, L, S, Lt = _encode_shapes(g, a)
+    dev = a.device
     if a.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"mds_encode: expected float32 or float64, got "
                          f"{a.dtype}")
     check_cuda("mds_encode a", a, a.dtype, 3, dev)
     check_cuda("mds_encode g", g, a.dtype, g.dim(), dev)
-    f64 = a.dtype == torch.float64
-    plan = gemm_plan("f64" if f64 else "f32", Lt - L if sys else Lt, S, L,
-                     batch=B, sms=sm_count(dev))
+    sys = systematic and Lt > L
+    dt, M, sms = ("f64" if a.dtype == torch.float64 else "f32",
+                  Lt - L if sys else Lt, sm_count(dev))
+    plan = encode_plan(dt, M, S, L, B, sms)
+    if route == "gemm" and plan.route != "gemm":
+        plan = gemm_plan(dt, M, S, L, B, sms)
+    elif route not in (None, plan.route):
+        raise ValueError(f"mds_encode: route {route!r} cannot take a "
+                         f"{dt} ({M} x {L}) @ ({L} x {S}) encode")
     out = torch.empty((B, Lt, S), dtype=a.dtype, device=dev)
-    ws = torch.empty((max(plan.ws_elems, 1),), dtype=a.dtype, device=dev)
-    err = _gemm_lib().repro_mds_encode(
-        int(f64), g.data_ptr(), Lt * L if g.dim() == 3 else 0, a.data_ptr(),
-        out.data_ptr(), B, Lt, L, S, int(sys), plan.config.code, plan.splits,
-        plan.k_span, ws.data_ptr(), stream_ptr(dev))
+    g_stride = Lt * L if g.dim() == 3 else 0
+    if plan.route == "stream":
+        err = _gemm_lib().repro_mds_encode_stream(
+            g.data_ptr(), g_stride, a.data_ptr(), out.data_ptr(), B, Lt, L,
+            S, int(sys), plan.grid[0], stream_ptr(dev))
+    else:
+        ws = torch.empty((max(plan.ws_elems, 1),), dtype=a.dtype,
+                         device=dev)
+        err = _gemm_lib().repro_mds_encode(
+            int(dt == "f64"), g.data_ptr(), g_stride, a.data_ptr(),
+            out.data_ptr(), B, Lt, L, S, int(sys), plan.config.code,
+            plan.splits, plan.k_span, ws.data_ptr(), stream_ptr(dev))
     raise_on_error("mds_encode", err)
     ENCODE_LAUNCHES += 1
     return out

@@ -1,7 +1,8 @@
 """Launch plans of the port's kernels: the GEMMs (``csrc/matmul.cu``,
 ``csrc/mds_encode_gemm.cu``: which tile configuration runs a product, its
-grid, and how far K is split), the skinny products of
-``csrc/coded_matvec.cu`` (route, grid, rows per block, X slab) and the
+grid, and how far K is split, or the encode's skinny float32 stream), the
+skinny products of ``csrc/coded_matvec.cu`` (route, grid, rows per block,
+X slab, K slabs) and the
 WKV recurrence of ``csrc/wkv6.cu`` (route, chunk, grid).
 
 Plain Python, so the CPU tests can check a plan at the path's shapes; the
@@ -26,9 +27,10 @@ import dataclasses
 import functools
 from typing import Dict, Tuple
 
-__all__ = ["TileConfig", "GemmPlan", "CONFIGS", "gemm_plan", "MatvecPlan",
-           "matvec_plan", "Wkv6Plan", "wkv6_plan", "Wkv6BwdPlan",
-           "wkv6_bwd_plan", "wkv6_ops", "wkv6_bwd_ops"]
+__all__ = ["TileConfig", "GemmPlan", "CONFIGS", "gemm_plan", "StreamPlan",
+           "encode_plan", "MatvecPlan", "matvec_plan", "matvec_launches",
+           "Wkv6Plan", "wkv6_plan", "Wkv6BwdPlan", "wkv6_bwd_plan",
+           "wkv6_ops", "wkv6_bwd_ops"]
 
 #: no slab shorter than this many K elements (the second pass and the
 #: pipeline's fill cost more than a shorter slab saves)
@@ -71,6 +73,7 @@ class GemmPlan:
     k_span: int                     # K elements per slab (multiple of BK)
     n_tile: int                     # columns a block computes
     ws_elems: int                   # workspace elements (0 when unsplit)
+    route: str = "gemm"
 
     @property
     def blocks(self) -> int:
@@ -120,36 +123,30 @@ def gemm_plan(dtype: str, M: int, N: int, K: int, batch: int = 1,
                     splits * batch * M * N if splits > 1 else 0)
 
 
-# -- coded_matvec (csrc/coded_matvec.cu) ------------------------------------
+# -- the encode's skinny float32 stream (csrc/mds_encode_gemm.cu) ----------
 #
-# A block of MV_WARPS warps owns a contiguous range of one task's rows and
-# its warps take the range's groups of 2 rows in turn.  "staged": X[:, chunk]
-# whole in shared memory (at most MV_STAGE_MAX bytes); "direct": X read
-# through L1/L2, no shared memory.  The grid is a whole number of waves of
-# MV_BLOCKS_PER_SM blocks an SM (the residency the kernel's launch bounds
-# hold it to) where the rows allow, and every block's rows are within one
-# of the others'.
+# A float32 encode with at most ENC_STREAM_MAX_ROWS computed rows against
+# at most ENC_STREAM_MAX_K rows of A (the coded-gradient encode: 2 parity
+# rows of 4) is a stream: each thread reads the K rows of A at its columns
+# once, writes them to the systematic rows and the computed rows beside
+# them.  The grid is (blocks per task, tasks), blocks of
+# ENC_STREAM_THREADS threads walking the columns in a grid-stride loop,
+# ENC_STREAM_BLOCKS_PER_SM blocks an SM in all.  Every other float32 shape
+# (the executor's 1e4 x 1e4, the float32 matmul core's) takes sgemm.
 
-MV_WARPS = 8
-MV_BLOCKS_PER_SM = 2
-MV_STAGE_MAX = 64 * 1024    # largest X slab the staged route takes, bytes
-MV_COLS = 8                 # columns of X one launch computes
-MV_MIN_ROWS = 16            # fewest rows a block takes (2 a warp)
+ENC_STREAM_MAX_ROWS = 8
+ENC_STREAM_MAX_K = 8
+ENC_STREAM_THREADS = 256
+ENC_STREAM_BLOCKS_PER_SM = 8
 
 
 @dataclasses.dataclass(frozen=True)
-class MatvecPlan:
-    route: str              # "staged" | "direct"
-    cc: int                 # columns this launch computes (<= MV_COLS)
+class StreamPlan:
+    rows: int               # computed rows (the parity rows when systematic)
+    k: int                  # rows of A
     grid: Tuple[int, int]   # (blocks per task, tasks)
-    rows_per_block: int
-    slab_bytes: int         # the staged X slab (0 when direct)
-    blocks_per_sm: int      # residency the grid is sized for
     threads: int
-
-    @property
-    def route_code(self) -> int:
-        return 0 if self.route == "staged" else 1
+    route: str = "stream"
 
     @property
     def blocks(self) -> int:
@@ -157,17 +154,117 @@ class MatvecPlan:
 
 
 @functools.lru_cache(maxsize=256)
+def encode_plan(dtype: str, M: int, N: int, K: int, batch: int = 1,
+                sms: int = 132):
+    """The launch of an encode's ``batch`` products (M x K) @ (K x N) in
+    ``dtype`` ("f32" or "f64"), M the rows the product computes (the
+    parity rows of a systematic encode): the stream route for a float32
+    product of at most ENC_STREAM_MAX_ROWS x ENC_STREAM_MAX_K, else
+    :func:`gemm_plan`'s tiles."""
+    if dtype == "f32" and 1 <= M <= ENC_STREAM_MAX_ROWS \
+            and 1 <= K <= ENC_STREAM_MAX_K and N >= 1 and batch >= 1:
+        if batch > 65535:
+            raise ValueError(f"encode_plan: {batch} tasks, at most 65535")
+        per_task = max(1, min(_cdiv(_cdiv(N, 4), ENC_STREAM_THREADS),
+                              ENC_STREAM_BLOCKS_PER_SM * sms // batch))
+        return StreamPlan(M, K, (per_task, batch), ENC_STREAM_THREADS)
+    return gemm_plan(dtype, M, N, K, batch, sms)
+
+
+# -- coded_matvec (csrc/coded_matvec.cu) ------------------------------------
+#
+# Narrow routes (C <= 8 columns, or float32 sums): a block of MV_WARPS
+# warps owns a contiguous range of one task's rows and its warps take the
+# range's groups of 2 rows in turn.  "staged": X[:, chunk] whole in shared
+# memory (at most MV_STAGE_MAX bytes); "direct": X read through L1/L2, no
+# shared memory.  The grid is a whole number of waves of MV_BLOCKS_PER_SM
+# blocks an SM (the residency the kernel's launch bounds hold it to) where
+# the rows allow, and every block's rows are within one of the others'.
+# One launch computes MV_COLS columns.
+#
+# "wide" (C > 8 columns summed in float64): up to MV_WIDE_COLS columns a
+# launch on the FP64 tensor cores, blocks of MV_WIDE_ROWS rows, K split
+# into ``splits`` slabs of ``k_span`` -- a function of K and the element
+# size only, never of R, the task count or the card -- summed in slab
+# order inside a thread-block cluster.  The grid is (row blocks, splits,
+# tasks).  The float32 -> float32 product (the reference's float32 sums)
+# keeps the narrow routes at any C.
+
+MV_WARPS = 8
+MV_BLOCKS_PER_SM = 2
+MV_STAGE_MAX = 64 * 1024    # largest X slab the staged route takes, bytes
+MV_COLS = 8                 # columns of X one narrow launch computes
+MV_MIN_ROWS = 16            # fewest rows a block takes (2 a warp)
+MV_WIDE_COLS = 64           # columns of X one wide launch computes
+MV_WIDE_WARPS = 8
+MV_WIDE_ROWS = 128          # rows a block
+MV_WIDE_ROW_BYTES = 128     # bytes of an A row a stage holds
+MV_WIDE_MAX_SPLITS = 8      # K slabs: one cluster of at most 8 blocks
+MV_WIDE_MIN_SPAN = 256      # K elements a slab takes before K splits more
+
+
+@dataclasses.dataclass(frozen=True)
+class MatvecPlan:
+    route: str              # "staged" | "direct" | "wide"
+    cc: int                 # columns this launch computes
+    grid: Tuple[int, int]   # (row blocks per task, tasks); the wide
+                            # route's launch grid is (grid[0], splits,
+                            # grid[1])
+    rows_per_block: int
+    slab_bytes: int         # the staged X slab (0 when direct or wide)
+    blocks_per_sm: int      # residency the grid is sized for
+    threads: int
+    splits: int = 1         # K slabs (the wide route's cluster size)
+    k_span: int = 0         # K elements a slab (the wide route)
+
+    @property
+    def route_code(self) -> int:
+        return 0 if self.route == "staged" else 1
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.splits
+
+
+def _wide_slabs(esz: int, K: int) -> Tuple[int, int]:
+    """(splits, k_span) of the wide route: slabs of at least
+    MV_WIDE_MIN_SPAN elements, at most MV_WIDE_MAX_SPLITS of them, each a
+    whole number of stage rows, none empty -- from K and the element size
+    alone."""
+    bk = MV_WIDE_ROW_BYTES // esz
+    splits = min(MV_WIDE_MAX_SPLITS, max(1, _cdiv(K, MV_WIDE_MIN_SPAN)))
+    k_span = max(bk, _cdiv(_cdiv(max(K, 1), splits), bk) * bk)
+    return max(1, _cdiv(K, k_span)), k_span
+
+
+@functools.lru_cache(maxsize=256)
 def matvec_plan(esz: int, R: int, K: int, C: int, batch: int = 1,
-                sms: int = 132) -> MatvecPlan:
-    """The launch computing ``min(C, 8)`` columns of ``batch`` products
-    (R x K) @ (K x C) with ``esz``-byte inputs (4 or 8) on a card of
-    ``sms`` multiprocessors."""
-    if esz not in (4, 8):
-        raise ValueError(f"matvec_plan: element size {esz}, expected 4 or 8")
-    if min(R, C, batch) <= 0 or K < 0 or K % (16 // esz):
+                sms: int = 132, out_esz: int = None,
+                c0: int = 0) -> MatvecPlan:
+    """The launch computing the columns from ``c0`` of ``batch`` products
+    (R x K) @ (K x C) with ``esz``-byte inputs (4 or 8) summed and written
+    in ``out_esz``-byte floats (default ``esz``) on a card of ``sms``
+    multiprocessors: the wide route for C > 8 columns with a float64 sum
+    (``min(C - c0, 64)`` columns), else a narrow one (``min(C - c0, 8)``);
+    the next launch starts at ``c0 + cc``."""
+    out_esz = esz if out_esz is None else out_esz
+    if esz not in (4, 8) or out_esz not in (4, 8) or out_esz < esz:
+        raise ValueError(f"matvec_plan: element sizes {esz} -> {out_esz}, "
+                         f"expected 4 -> 4, 4 -> 8 or 8 -> 8")
+    if min(R, C, batch) <= 0 or K < 0 or K % (16 // esz) \
+            or not 0 <= c0 < C:
         raise ValueError(f"matvec_plan: bad shape batch={batch} R={R} K={K} "
-                         f"C={C} (K a multiple of {16 // esz})")
-    cc = min(C, MV_COLS)
+                         f"C={C} c0={c0} (K a multiple of {16 // esz})")
+    if C > MV_COLS and out_esz == 8:
+        if batch > 65535:
+            raise ValueError(f"matvec_plan: {batch} tasks, at most 65535 "
+                             f"for the wide route's grid")
+        splits, k_span = _wide_slabs(esz, K)
+        return MatvecPlan("wide", min(C - c0, MV_WIDE_COLS),
+                          (_cdiv(R, MV_WIDE_ROWS), batch), MV_WIDE_ROWS, 0,
+                          MV_BLOCKS_PER_SM, 32 * MV_WIDE_WARPS, splits,
+                          k_span)
+    cc = min(C - c0, MV_COLS)
     slab = cc * K * esz
     staged = slab <= MV_STAGE_MAX
     slots = MV_BLOCKS_PER_SM * sms
@@ -177,6 +274,19 @@ def matvec_plan(esz: int, R: int, K: int, C: int, batch: int = 1,
     return MatvecPlan("staged" if staged else "direct", cc, (per_task, batch),
                       rows, slab if staged else 0, MV_BLOCKS_PER_SM,
                       32 * MV_WARPS)
+
+
+@functools.lru_cache(maxsize=256)
+def matvec_launches(esz: int, R: int, K: int, C: int, batch: int = 1,
+                    sms: int = 132, out_esz: int = None) -> tuple:
+    """Every launch of one product, in order: ``((c0, plan), ...)`` whose
+    column chunks cover ``0 .. C - 1`` once."""
+    out, c0 = [], 0
+    while c0 < C:
+        p = matvec_plan(esz, R, K, C, batch, sms, out_esz, c0)
+        out.append((c0, p))
+        c0 += p.cc
+    return tuple(out)
 
 
 # -- wkv6 (csrc/wkv6.cu) ----------------------------------------------------

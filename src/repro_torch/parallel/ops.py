@@ -74,18 +74,35 @@ def _backend(group) -> str:
     return str(dist.get_backend(group))
 
 
+class _Psum(torch.autograd.Function):
+    """The all-reduce of :func:`psum` with its transpose.  The sum is
+    replicated over the group, and ``local_map`` hands each rank the whole
+    cotangent of a replicated output, so the transpose is the identity
+    (the reference's ``psum`` under ``shard_map`` transposes to its
+    broadcast)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        import torch.distributed as dist
+        if _backend(group) == "gloo" and t.dtype not in (
+                torch.float32, torch.float64, torch.int32, torch.int64):
+            wide = t.float()
+            dist.all_reduce(wide, group=group)
+            return wide.to(t.dtype)
+        out = t.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 def psum(t: torch.Tensor, group) -> torch.Tensor:
-    """Sum of ``t`` over ``group`` (a new tensor).  Gloo reduces no
-    bfloat16 or float8: there the sum runs in float32 and is cast back."""
-    import torch.distributed as dist
-    out = t.clone()
-    if _backend(group) == "gloo" and out.dtype not in (
-            torch.float32, torch.float64, torch.int32, torch.int64):
-        wide = out.float()
-        dist.all_reduce(wide, group=group)
-        return wide.to(t.dtype)
-    dist.all_reduce(out, group=group)
-    return out
+    """Sum of ``t`` over ``group`` (a new tensor; differentiable, its
+    gradient the cotangent itself).  Gloo reduces no bfloat16 or float8:
+    there the sum runs in float32 and is cast back."""
+    return _Psum.apply(t, group)
 
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:
@@ -205,7 +222,7 @@ def sharded_embed(table: torch.Tensor, tokens: torch.Tensor, mesh,
             or table.shape[0] % mesh.size(
                 mesh.mesh_dim_names.index(model_axis)):
         return table[tokens]
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     names = mesh.mesh_dim_names
     S = mesh.size(names.index(model_axis))
@@ -228,8 +245,12 @@ def sharded_embed(table: torch.Tensor, tokens: torch.Tensor, mesh,
         # one rank holds each token's row: the sum adds only zeros to it
         return psum(out.masked_fill(~ok[..., None], 0), group)
 
+    # each data rank takes its own rows of the batch: the table's local
+    # gradient is that rank's part of the sum over the batch
+    grad_pl = [Shard(0) if a == model_axis else Partial() for a in names]
     return local_map(emb, out_placements=tok_pl,
-                     in_placements=(tab_pl, tok_pl), device_mesh=mesh,
+                     in_placements=(tab_pl, tok_pl),
+                     in_grad_placements=(grad_pl, tok_pl), device_mesh=mesh,
                      redistribute_inputs=True)(table, tokens)
 
 

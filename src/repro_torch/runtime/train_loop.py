@@ -21,6 +21,7 @@ the data stream's state, on ``device`` (default ``cuda``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -37,7 +38,7 @@ from ..device import resolve_device
 from ..models import ArchConfig, ModelCtx, model_fwd
 from ..optim import (adafactor_update, adamw_init, adamw_update,
                      cosine_warmup)
-from ..parallel.ops import is_dtensor, token_nll
+from ..parallel.ops import is_dtensor, replicating, token_nll
 
 __all__ = ["TrainLoopConfig", "TrainLoop", "make_train_step", "loss_fn",
            "value_and_grad"]
@@ -66,7 +67,10 @@ def value_and_grad(params, batch, *, cfg: ArchConfig,
     parameter's dtype), as ``jax.value_and_grad`` gives them."""
     leaves, skeleton = _tree.flatten(params)
     live = [p.detach().requires_grad_() for p in leaves]
-    with torch.enable_grad():
+    # under a mesh the backward, like the forward, meets the plain tensors
+    # the forward built (masks, positions) beside DTensors
+    with torch.enable_grad(), replicating() if ctx.mesh is not None \
+            else contextlib.nullcontext():
         loss = loss_fn(_tree.unflatten(skeleton, live), batch, cfg=cfg,
                        ctx=ctx)
         grads = torch.autograd.grad(loss, live, allow_unused=True)

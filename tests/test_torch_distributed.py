@@ -16,7 +16,9 @@ single-device port; and asserts which expert-parallel body ran:
 ``ep_moe`` for the forward and prefill, ``ep_small`` for the B = 1 decode,
 ``ep_full_body`` under ``ep_full`` (there also once with float8 dispatch
 payloads, against the single-device forward whose expert inputs are
-rounded to float8 the same way).
+rounded to float8 the same way).  One training step of llama3.2-1b in
+float32 through the sharded embedding holds its loss and every gradient
+leaf to the single-device port's.
 """
 import dataclasses
 import os
@@ -132,3 +134,32 @@ def test_sharded_matches_single_device_and_reference(group, arch, ep_full):
         assert dc == {**want, "ep_small": n_moe}        # B = 1: one token
     else:
         assert fwd == pf == dc == want
+
+
+#: a sharded step's gradients against the single-device port's, x the
+#: leaf's max |g|: float32 sums taken in another order (the model dim's
+#: partial products, the data dim's halves of the batch) move a leaf by a
+#: few float32 roundings of its largest entry; a gradient that misses a
+#: shard's contribution (the tied embedding's, say) is off by its own size
+GRAD_TOL = 1e-5
+
+
+def test_sharded_train_step_gradients_match_single_device(group):
+    """The vocab-sharded embedding's backward (the masked take, the sum
+    over the model dim, the table's gradient summed over the data dim)
+    and the tied head's: every leaf's gradient equals the single-device
+    port's within ``GRAD_TOL``."""
+    res, _ = group
+    r = res["train"]
+    assert r["embeds"] == 1
+    loss, loss_s = r["loss"]
+    assert abs(float(loss) - float(loss_s)) <= 1e-6 * abs(float(loss))
+    worst = {}
+    for path, g, gs in r["grads"]:
+        assert gs.shape == g.shape, path
+        worst[path] = float((gs.double() - g.double()).abs().max()) \
+            / max(float(g.abs().max()), 1e-30)
+    print(f"gradient error / max |g|: "
+          f"{ {k: float(f'{v:.3g}') for k, v in sorted(worst.items())} }")
+    assert "embed.tok" in worst
+    assert max(worst.values()) <= GRAD_TOL, worst

@@ -5,8 +5,9 @@ Each rank loads the reference's smoke parameters (``params_from_numpy``),
 runs the port's single-device forward, then the sharded one on a
 ("data" 2, "model" 2) mesh: ``model_fwd`` twice (bit-equal), ``prefill``
 and a B = 1 ``decode_step``; for the MoE configs also under ``ep_full``,
-and one forward with float8 dispatch payloads (``a2a_fp8``).
-Rank 0 saves every result, with the bytes each rank holds of each leaf
+and one forward with float8 dispatch payloads (``a2a_fp8``); then one
+training step's loss and gradients of llama3.2-1b on the mesh beside the
+single-device port's.  Rank 0 saves every result, with the bytes each rank holds of each leaf
 and the expert-parallel bodies run, for the test to check.
 """
 from __future__ import annotations
@@ -69,6 +70,37 @@ def _fp8_single(params, batch, cfg):
         moe._expert_ffn = ffn
 
 
+def _train_grads(item, mesh) -> dict:
+    """One training step's loss and gradients of ``item``'s config (the
+    job's first, llama3.2-1b) in float32, on one device and on the mesh
+    (the sharded embedding, tensor and data parallelism): the loss and
+    every gradient leaf of both, the sharded ones as full tensors, and the
+    sharded embeddings taken."""
+    from repro_torch import _tree
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models import ModelCtx
+    from repro_torch.parallel import ops as pops
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.runtime.train_loop import value_and_grad
+    arch, tree, batch = item
+    cfg = _cfg(arch)
+    tp = _tree.map(lambda t: t.float(),
+                   params_from_numpy(tree, cfg, device="cpu"))
+    tok = torch.from_numpy(batch["tokens"])
+    tb = {"tokens": tok, "labels": torch.roll(tok, -1, dims=1)}
+    loss, grads = value_and_grad(tp, tb, cfg=cfg)
+    emb0 = pops.EMBED_CALLS
+    loss_s, grads_s = value_and_grad(sh.shard_params(tp, mesh), tb, cfg=cfg,
+                                     ctx=ModelCtx(mesh=mesh))
+
+    def full(t):
+        return t.full_tensor() if pops.is_dtensor(t) else t
+    return dict(loss=(loss, full(loss_s)),
+                grads=[(path, g, full(gs)) for (path, g), (_, gs)
+                       in zip(sh._paths(grads), sh._paths(grads_s))],
+                embeds=pops.EMBED_CALLS - emb0)
+
+
 def run(rank: int, world: int, work: str) -> None:
     import torch.distributed as dist
     from repro_torch.convert import params_from_numpy
@@ -127,12 +159,14 @@ def run(rank: int, world: int, work: str) -> None:
                     embeds=embeds,
                     nbytes=_bytes(ps, mesh))
                 del ps
+    res["train"] = _train_grads(job[0], mesh)
     gathered = [None] * world if rank == 0 else None
-    dist.gather_object({k: v["nbytes"] for k, v in res.items()}, gathered,
-                       dst=0)
+    dist.gather_object({k: v["nbytes"] for k, v in res.items()
+                        if k != "train"}, gathered, dst=0)
     if rank == 0:
         for k, v in res.items():
-            v["nbytes"] = [g[k] for g in gathered]
+            if k != "train":
+                v["nbytes"] = [g[k] for g in gathered]
         torch.save(res, work / "result.pt")
     dist.destroy_process_group()
 
