@@ -41,12 +41,20 @@ exits non-zero):
      (more than 8 columns summed in float64, on the FP64 tensor cores) at
      C 9 / 32 / 64 / 65 x K 128 / 2048 / 8192 x 1-24 tiles in both input
      types, 128 rows launched alone bit-equal to the whole launch's, 16
-     calls bit-equal; row 2t's trunk stages at C = 4 and 32 with their
-     route, timed beside the parent's 8-column launches (P / F); the
-     encode's float32 stream route ``torch.equal`` to the copy_prefix +
-     sgemm route at 2^26 + 3 and 2^26 columns, per-task G and B > 1;
-     ``coded_matvec`` at
-     deepseek-v3-671b's head tiles (L = 129 536, K = 7 168, C = 4) and
+     calls bit-equal; its direct route at 2-8 columns (X read as 16-byte
+     vectors, in place or from a [cc][K] copy) bit-equal to the parent's
+     element-wise reads over 49 shapes (three type pairs, 1 and 3 tasks,
+     K tails, a column-sliced X); row 2t's trunk stages at C = 4 and 32
+     with their route, bit-equal to the parent's route and timed beside
+     it (P / F); the encode's float32 stream route ``torch.equal`` to the
+     copy_prefix + sgemm route at 2^26 + 3 and 2^26 columns, per-task G
+     and B > 1; the parity contraction at the trunk decodes (row 3t, C = 4
+     and 32, the wide route beside the parent's 8-column launches, P / F)
+     and its wide route at C 9-100 gathered and not against its plain
+     version, each column of a C = 32 product and 45 of its rows
+     computed alone bit-equal to the whole launch's, 16 calls bit-equal;
+     ``coded_matvec`` at deepseek-v3-671b's head tiles (L = 129 536, K =
+     7 168, C = 4; row 2d, P / F against the parent's direct route) and
      the parity kernels at phase n's frozen DeepSeek solve; then the
      decode's two routes for a parity minor on a synthetic head plan
      whose unknowns are known: the float32 LU refined in float64 at s =
@@ -151,7 +159,7 @@ exits non-zero):
      beside the cited peaks;
   i. one JSON line with every kernel's numbers and its launches on the
      main path (phases e to q, counts reset just before e, phase q's
-     ranks' added; ``wkv6``'s
+     ranks' added; the wide contraction a row of its own; ``wkv6``'s
      row with its backward's, ``wkv6_bwd`` also a row of its own;
      ``mds_encode`` also timed at phase o's coded-gradient shape, row 5g,
      after the counts are read), then the result line.
@@ -589,6 +597,7 @@ def phase_c(dev, deepseek_s: int) -> dict:
     torch.cuda.empty_cache()
     coded_matvec_edge_sweep(dev)
     wide_matvec_gates(dev)
+    direct_matvec_gates(dev)
 
     # -- mds_encode: the executor's 4 x parity (L x L) @ (L x L) float64 ----
     sq = float(np.sqrt(Lp))
@@ -807,7 +816,23 @@ def phase_c(dev, deepseek_s: int) -> dict:
            two_pass_ms=two_ms)
     del got, want, two, y, kc, kj, dctrs_t, dcols_t
     torch.cuda.empty_cache()
-    rows["parity_contract"]["trunk"] = trunk_contract_rows(dev, gen, key)
+    trunk = trunk_contract_rows(dev, gen, key)
+    rows["parity_contract"]["trunk"] = {k: v for k, v in trunk.items()
+                                        if v["route"] == "narrow"}
+    wide_contract_gates(dev, key)
+    # the wide contraction's row: row 3t at L 8192, C = 32, beside its
+    # other trunk shapes
+    wide = {k: v for k, v in trunk.items() if v["route"] == "wide"}
+    main = wide[f"L={TRUNK_DECODES[-1][0]} s={TRUNK_DECODES[-1][1]} "
+                f"C={TRUNK_COLS[-1]}"]
+    rows["parity_contract_wide"] = dict(
+        name="parity_contract_wide", route="cuda",
+        source="src/repro_torch/csrc/mds_encode.cu",
+        replaces="src/repro/kernels/mds_encode.py:65",
+        max_abs_err=max(v["max_abs_err"] for v in wide.values()),
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None,
+        queued_ms=main["queued_ms"], graph_ms=main["graph_ms"], trunk=wide)
     (rows["coded_matvec"]["deepseek_head"],
      rows["counter_parity_rows"]["deepseek_chunk"],
      rows["parity_contract"]["deepseek_head"]) = \
@@ -978,14 +1003,31 @@ def decode_route_rows(dev) -> None:
                              f"{f64['err']})")
 
 
+def pf_turns(parent, change, iters: int = 9) -> dict:
+    """The parent's and the change's call on the same inputs, timed in
+    turns P F F P, each turn single (median of ``iters``), queued and from
+    a CUDA graph: the lower of each kind's two turns."""
+    turns = {"P": [], "F": []}
+    for who in "PFFP":
+        fn = parent if who == "P" else change
+        turns[who].append((time_ms(fn, iters), time_queued_ms(fn),
+                           time_graph_ms(fn)))
+    ms, q_ms, g_ms = (min(v[i] for v in turns["F"]) for i in range(3))
+    p_ms, p_q_ms, p_g_ms = (min(v[i] for v in turns["P"]) for i in range(3))
+    return dict(ms=ms, queued_ms=q_ms, graph_ms=g_ms, parent_ms=p_ms,
+                parent_queued_ms=p_q_ms, parent_graph_ms=p_g_ms)
+
+
 def trunk_matvec_rows(dev, gen) -> dict:
     """``coded_matvec`` at phase l's packed trunk stages (ragged stage
     rows in 128-row tiles, K up to 8192), float64 sums, against its plain
-    version; each row's route, and the wrapper's time beside the parent's
-    route (the 8-column launches, ``route="narrow"``) through the same
-    wrapper on the same inputs, as P / F, timed in turns P F F P; beside
-    them the main path's entry (``ops.coded_shard_matmul_batch``, whose
-    host work a single call also times) and the library call."""
+    version and (bit for bit) the parent's direct route (``route=
+    "element"``; the staged and wide shapes run the same launches on
+    both); each row's route, and the wrapper's time beside the parent's
+    through the same wrapper on the same inputs, as P / F, timed in turns
+    P F F P; beside them the main path's entry
+    (``ops.coded_shard_matmul_batch``, whose host work a single call also
+    times) and the library call."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.coded_matvec import coded_matvec_cuda
@@ -1008,23 +1050,17 @@ def trunk_matvec_rows(dev, gen) -> dict:
 
             def parent():
                 return coded_matvec_cuda(flat, x, out_dtype=torch.float64,
-                                         route="narrow")
+                                         route="element")
 
             def change():
                 return coded_matvec_cuda(flat, x, out_dtype=torch.float64)
-            turns = {"P": [], "F": []}
-            for who in "PFFP":
-                fn = parent if who == "P" else change
-                turns[who].append((time_ms(fn, 9), time_queued_ms(fn),
-                                   time_graph_ms(fn)))
-            ms, q_ms, g_ms = (min(v[i] for v in turns["F"])
-                              for i in range(3))
-            p_ms, p_q_ms, p_g_ms = (min(v[i] for v in turns["P"])
-                                    for i in range(3))
-            row = dict(
-                route=matvec_route(flat, x, torch.float64),
-                ms=ms, queued_ms=q_ms, graph_ms=g_ms, parent_ms=p_ms,
-                parent_queued_ms=p_q_ms, parent_graph_ms=p_g_ms,
+            if not torch.equal(parent(), got):
+                raise AssertionError(f"coded_matvec at the trunk stage "
+                                     f"{stage}, C {C}: not bit-equal to the "
+                                     f"parent's route")
+            row = dict(route=matvec_route(flat, x, torch.float64),
+                       **pf_turns(parent, change))
+            row.update(
                 ops_ms=time_ms(lambda: ops.coded_shard_matmul_batch(tiles,
                                                                     x), 9),
                 plain_ms=time_ms(lambda: ref.coded_matvec_ref(
@@ -1041,9 +1077,11 @@ def trunk_matvec_rows(dev, gen) -> dict:
                 max_abs_err=err)
             print(f"[c] coded_matvec trunk {stage} ({n} rows in {nt} tiles,"
                   f" K {K}, C {C}, route {row['route']}): max_abs_err="
-                  f"{err:.3e} (tol {tol:.3e}) P / F kernel {p_ms:.4f} / "
-                  f"{ms:.4f} ms, queued {p_q_ms:.4f} / {q_ms:.4f}, graph "
-                  f"{p_g_ms:.4f} / {g_ms:.4f}; through ops "
+                  f"{err:.3e} (tol {tol:.3e}), bit-equal to the parent's; "
+                  f"P / F kernel {row['parent_ms']:.4f} / {row['ms']:.4f} "
+                  f"ms, queued {row['parent_queued_ms']:.4f} / "
+                  f"{row['queued_ms']:.4f}, graph {row['parent_graph_ms']:.4f}"
+                  f" / {row['graph_ms']:.4f}; through ops "
                   f"{row['ops_ms']:.4f}; library {row['library_ms']:.4f}"
                   f", queued {row['library_queued_ms']:.4f}, graph "
                   f"{row['library_graph_ms']:.4f}; plain "
@@ -1059,10 +1097,15 @@ def trunk_matvec_rows(dev, gen) -> dict:
 
 def trunk_contract_rows(dev, gen, key) -> dict:
     """The decode's known term (``parity_contract``) at trunk keys'
-    frozen solves, against its plain version."""
+    frozen solves, against its plain version; row 3t: C = 32 takes the
+    wide route, timed through the kernel wrapper beside the parent's
+    8-column launches (``route="narrow"``) on the same inputs as P / F in
+    turns P F F P, and through ``ops`` (the main path's entry)."""
     import torch
     from repro_torch.core import mds
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.mds_encode import parity_contract_dev
+    from repro_torch.kernels.plan import contract_launches
     out = {}
     rng = np.random.default_rng(1)
     for L, s in TRUNK_DECODES:
@@ -1082,27 +1125,173 @@ def trunk_contract_rows(dev, gen, key) -> dict:
             err = max_err(got, want)
             tol = 1e-12 * (1 + float(want.abs().max()))
             ents = s * m
-            row = dict(
-                ms=time_ms(lambda: ops.parity_contract(key, L, kc, y,
-                                                       cols=kj)),
-                queued_ms=time_queued_ms(lambda: ops.parity_contract(
-                    key, L, kc, y, cols=kj)),
+            launches = contract_launches(s, m, C)
+
+            def parent():
+                return parity_contract_dev(key, scale, kc, kj, y,
+                                           route="narrow")
+
+            def change():
+                return parity_contract_dev(key, scale, kc, kj, y)
+            if max_err(parent(), want) > tol:
+                raise AssertionError(f"parity_contract's 8-column launches "
+                                     f"at L {L}, C {C} disagree")
+            row = dict(route=launches[0][1].route, launches=len(launches),
+                       **pf_turns(parent, change))
+            bnd = bound(4.0 * (s + m) + 8.0 * (m + s) * C,
+                        parity_op_times(ents)
+                        + [2.0 * ents * C / F64_FLOP_PER_S])
+            row.update(
+                ops_ms=time_ms(lambda: ops.parity_contract(key, L, kc, y,
+                                                           cols=kj), 9),
                 plain_ms=time_ms(lambda: ref.parity_contract_ref(
                     key, scale, ctrs_t, cols_t, y), 3),
-                bound_ms=bound(4.0 * (s + m) + 8.0 * (m + s) * C,
-                               parity_op_times(ents)
-                               + [2.0 * ents * C / F64_FLOP_PER_S])[0],
-                max_abs_err=err)
+                bound_ms=bnd[0], bound_by=bnd[1], max_abs_err=err)
             print(f"[c] parity_contract trunk L {L}, {s} parity rows x {m} "
-                  f"known, C {C}: max_abs_err={err:.3e} (tol {tol:.3e}) "
-                  f"kernel {row['ms']:.4f} ms, queued "
-                  f"{row['queued_ms']:.4f}, plain {row['plain_ms']:.4f}, "
-                  f"bound {row['bound_ms']:.4f} ms", flush=True)
+                  f"known, C {C} (route {row['route']}, {len(launches)} "
+                  f"launch): max_abs_err={err:.3e} (tol {tol:.3e}) P / F "
+                  f"kernel {row['parent_ms']:.4f} / {row['ms']:.4f} ms, "
+                  f"queued {row['parent_queued_ms']:.4f} / "
+                  f"{row['queued_ms']:.4f}, graph {row['parent_graph_ms']:.4f}"
+                  f" / {row['graph_ms']:.4f}; through ops {row['ops_ms']:.4f}"
+                  f"; plain {row['plain_ms']:.4f}, bound {row['bound_ms']:.4f}"
+                  f" ms", flush=True)
             if err > tol:
                 raise AssertionError(f"parity_contract at a trunk decode "
                                      f"disagrees ({err} > {tol})")
             out[f"L={L} s={s} C={C}"] = row
     return out
+
+
+#: the wide contraction's gates: columns past the narrow kernel's 8, across
+#: the 64-column launches and their ragged edges, at row 3t's L 2 048
+#: decode (635 parity rows; gathered: the 1 413 known columns, else all
+#: 2 048)
+WIDE_CONTRACT_COLS = (9, 16, 32, 33, 64, 100)
+
+
+def wide_contract_gates(dev, key) -> None:
+    """The wide route of ``parity_contract`` (more than 8 float64
+    columns) against its plain version at 1e-12 x (1 + max |want|),
+    gathered and not, at WIDE_CONTRACT_COLS, one launch per 64 columns;
+    each column of a C = 32 product computed alone through the wide
+    route, and 45 of its rows alone, bit-equal to the whole launch's; 16
+    repeated calls bit-equal."""
+    import torch
+    from repro_torch.core import mds
+    from repro_torch.kernels import mds_encode as me
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(8)
+    t0 = time.perf_counter()
+    L, s = TRUNK_DECODES[0]
+    scale = ops.parity_scale(L)
+    ctrs = mds.parity_counters(np.arange(s), 0)
+    cols = np.sort(np.random.default_rng(2).permutation(L)[:L - s])
+    kc = torch.from_numpy(ctrs.view(np.int32)).to(dev)
+    ctrs_t = torch.from_numpy(ctrs.astype(np.int64)).to(dev)
+    worst = 0.0
+    for gathered in (True, False):
+        kj = torch.from_numpy(cols.astype(np.int32)).to(dev) \
+            if gathered else None
+        cols_t = torch.from_numpy(cols if gathered else np.arange(L)).to(dev)
+        m = cols_t.numel()
+        for C in WIDE_CONTRACT_COLS:
+            z = torch.randn((m, C), generator=gen, device=dev,
+                            dtype=torch.float64)
+            n0 = me.WIDE_CONTRACT_LAUNCHES
+            got = me.parity_contract_dev(key, scale, kc, kj, z)
+            n_wide = me.WIDE_CONTRACT_LAUNCHES - n0
+            want = ref.parity_contract_ref(key, scale, ctrs_t, cols_t, z)
+            err = max_err(got, want)
+            tol = 1e-12 * (1 + float(want.abs().max()))
+            tag = (f"parity_contract wide {'gathered' if gathered else 'all'}"
+                   f" columns, {s} x {m}, C {C}")
+            if n_wide != -(-C // 64):
+                raise AssertionError(f"{tag}: {n_wide} wide launches")
+            if err > tol:
+                raise AssertionError(f"{tag}: disagrees ({err} > {tol})")
+            worst = max(worst, err / tol)
+            if C == 32:
+                for c in range(C):
+                    alone = me.parity_contract_dev(
+                        key, scale, kc, kj, z[:, c:c + 1].contiguous(),
+                        route="wide")
+                    if not torch.equal(alone[:, 0], got[:, c]):
+                        raise AssertionError(f"{tag}: column {c} alone "
+                                             f"differs")
+                lo = s // 2 - 13            # off every 32-row block edge
+                rows = me.parity_contract_dev(key, scale, kc[lo:lo + 45], kj,
+                                              z)
+                if not torch.equal(rows, got[lo:lo + 45]):
+                    raise AssertionError(f"{tag}: rows {lo}..{lo + 44} "
+                                         f"alone differ")
+                repeat_equal(tag, got, lambda: me.parity_contract_dev(
+                    key, scale, kc, kj, z))
+    torch.cuda.synchronize()
+    print(f"[c] parity_contract wide route: {2 * len(WIDE_CONTRACT_COLS)} "
+          f"shapes agree with the plain version (largest err / tol "
+          f"{worst:.3g}), one launch per 64 columns; at C = 32 every column "
+          f"alone and 45 rows alone equal the whole launch's bit for bit, "
+          f"16 calls bit-equal, in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+#: the direct route's sweep: (tasks, rows, K of float32 inputs, K of
+#: float64): every K past the staged slab at 2 columns, not a whole trip of
+#: vectors (a K tail), one task and a stack of 3
+DIRECT_SWEEP = ((1, 1237, 8196, 4098), (3, 333, 16388, 8194))
+
+
+def direct_matvec_gates(dev) -> None:
+    """``coded_matvec``'s direct route at 2 <= cc <= 8 columns, in all
+    three type pairs, for one task and a stack, bit-equal to the parent's
+    direct route (``route="element"``) and against its plain version
+    (1e-12 x (1 + max |want|) for float64 sums, 2e-3 for float32); and a
+    column-sliced X (float32 sums at C = 8 + cc: the launches of columns
+    [0, 8) and [8, 8 + cc)) likewise."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.coded_matvec import coded_matvec_cuda
+    gen = torch.Generator(device=dev).manual_seed(9)
+    t0 = time.perf_counter()
+    worst, n = {}, 0
+    cases = [(cc, ti, to, B, R, Kf if ti == torch.float32 else Kd, cc)
+             for cc in range(2, 9)
+             for ti, to in ((torch.float32, torch.float32),
+                            (torch.float32, torch.float64),
+                            (torch.float64, torch.float64))
+             for B, R, Kf, Kd in DIRECT_SWEEP]
+    cases += [(cc, torch.float32, torch.float32, 1, 1237, DIRECT_SWEEP[0][2],
+               8 + cc) for cc in range(2, 9)]
+    for cc, ti, to, B, R, K, C in cases:
+        a = torch.randn((B, R, K), generator=gen, device=dev, dtype=ti)
+        x = torch.randn((B, K, C), generator=gen, device=dev, dtype=ti)
+        if B == 1:
+            a, x = a[0], x[0]
+        tag = (f"coded_matvec direct B {B} R {R} K {K} C {C} "
+               f"{str(ti).split('.')[-1]} -> {str(to).split('.')[-1]}")
+        if matvec_route(a, x, to) != "direct":
+            raise AssertionError(f"{tag}: not the direct route")
+        got = coded_matvec_cuda(a, x, out_dtype=to)
+        old = coded_matvec_cuda(a, x, out_dtype=to, route="element")
+        if not torch.equal(got, old):
+            raise AssertionError(f"{tag}: not bit-equal to the parent's "
+                                 f"route ({max_err(got, old)})")
+        want = ref.coded_matvec_ref(a, x, out_dtype=to)
+        err = max_err(got, want)
+        tol = (1e-12 if to == torch.float64 else 2e-3) \
+            * (1 + float(want.abs().max()))
+        if err > tol:
+            raise AssertionError(f"{tag}: disagrees ({err} > {tol})")
+        kind = f"{str(ti).split('.')[-1]} -> {str(to).split('.')[-1]}"
+        worst[kind] = max(worst.get(kind, 0.0), err / tol)
+        n += 1
+    torch.cuda.synchronize()
+    print(f"[c] coded_matvec direct route: {n} shapes (cc 2-8, 1 and 3 "
+          f"tasks, K tails, column-sliced X) bit-equal to the parent's "
+          f"route and within tolerance of the plain version (largest err / "
+          f"tol { {k: float(f'{v:.3g}') for k, v in worst.items()} }), in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def deepseek_coded_seed() -> tuple:
@@ -1128,14 +1317,17 @@ def deepseek_coded_seed() -> tuple:
 def deepseek_head_rows(dev, gen, key, s: int) -> tuple:
     """Row 2d: ``coded_matvec`` at DeepSeek-V3's packed head tiles (L =
     129 536 rows in 1 012 tiles of 128, K = d_model 7 168, C = 4, float64
-    sums); and the parity kernels at phase n's frozen solve, s parity rows
-    against the L - s known columns: ``counter_parity_rows`` at one chunk
-    of the minor build, ``parity_contract`` (the decode's known term, C =
-    4) -- each against its plain version."""
+    sums), bit-equal to the parent's direct route (``route="element"``)
+    and timed beside it as P / F in turns P F F P; and the parity kernels
+    at phase n's frozen solve, s parity rows against the L - s known
+    columns: ``counter_parity_rows`` at one chunk of the minor build,
+    ``parity_contract`` (the decode's known term, C = 4) -- each against
+    its plain version."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import mds
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.coded_matvec import coded_matvec_cuda
     from repro_torch.models import padded_vocab
     from repro_torch.serve_coded.packing import DECODE_CHUNK
     cfg = get_config(DEEPSEEK)
@@ -1147,10 +1339,22 @@ def deepseek_head_rows(dev, gen, key, s: int) -> tuple:
     got = ops.coded_shard_matmul_batch(tiles, x).reshape(-1, BATCH)
     want = ref.coded_matvec_ref(flat, x, out_dtype=torch.float64)
     err, tol = max_err(got, want), 1e-12 * (1 + float(want.abs().max()))
-    print_matvec_plan("deepseek head", flat, x)
-    mv = dict(
-        ms=time_ms(lambda: ops.coded_shard_matmul_batch(tiles, x)),
-        queued_ms=time_queued_ms(
+    print_matvec_plan("deepseek head", flat, x, torch.float64)
+
+    def parent():
+        return coded_matvec_cuda(flat, x, out_dtype=torch.float64,
+                                 route="element")
+
+    def change():
+        return coded_matvec_cuda(flat, x, out_dtype=torch.float64)
+    if not torch.equal(parent(), got):
+        raise AssertionError("coded_matvec at the DeepSeek head: not "
+                             "bit-equal to the parent's route")
+    mv = dict(route=matvec_route(flat, x, torch.float64),
+              **pf_turns(parent, change, 5))
+    mv.update(
+        ops_ms=time_ms(lambda: ops.coded_shard_matmul_batch(tiles, x)),
+        ops_queued_ms=time_queued_ms(
             lambda: ops.coded_shard_matmul_batch(tiles, x)),
         plain_ms=time_ms(lambda: ref.coded_matvec_ref(
             flat, x, out_dtype=torch.float64)),
@@ -1161,9 +1365,13 @@ def deepseek_head_rows(dev, gen, key, s: int) -> tuple:
                        [2.0 * nt * TILE * K * BATCH / F64_FLOP_PER_S])[0],
         max_abs_err=err)
     print(f"[c] coded_matvec at {DEEPSEEK}'s head ({nt} tiles of {TILE} x "
-          f"K {K}, C {BATCH}, float64 sums; row 2d): max_abs_err={err:.3e} "
-          f"(tol {tol:.3e}) kernel {mv['ms']:.4f} ms, queued "
-          f"{mv['queued_ms']:.4f}, plain {mv['plain_ms']:.4f}, library "
+          f"K {K}, C {BATCH}, float64 sums, route {mv['route']}; row 2d): "
+          f"max_abs_err={err:.3e} (tol {tol:.3e}), bit-equal to the "
+          f"parent's; P / F kernel {mv['parent_ms']:.4f} / {mv['ms']:.4f} "
+          f"ms, queued {mv['parent_queued_ms']:.4f} / {mv['queued_ms']:.4f}"
+          f", graph {mv['parent_graph_ms']:.4f} / {mv['graph_ms']:.4f}; "
+          f"through ops {mv['ops_ms']:.4f} (queued "
+          f"{mv['ops_queued_ms']:.4f}); plain {mv['plain_ms']:.4f}, library "
           f"{mv['library_ms']:.4f} (queued {mv['library_queued_ms']:.4f}), "
           f"bound {mv['bound_ms']:.4f} ms", flush=True)
     if err > tol:
@@ -1299,8 +1507,8 @@ def print_matvec_plan(label: str, a, x, out_dtype=None) -> None:
               f"{c0 + p.cc - 1}): {p.route}, grid {p.grid} x {p.splits} K "
               f"slabs of {p.k_span or K} = {p.blocks} blocks of {p.threads} "
               f"threads ({waves:.2f} waves of {p.blocks_per_sm} an SM), "
-              f"{p.rows_per_block} rows a block, X slab {p.slab_bytes} B",
-              flush=True)
+              f"{p.rows_per_block} rows a block, X slab {p.slab_bytes} B"
+              f"{', X copied to [cc][K]' if p.x_copy else ''}", flush=True)
 
 
 #: phase c's coded_matvec edge shapes: (B, R, K, C) -- ragged R (not a
@@ -2549,7 +2757,8 @@ def phase_l(dev) -> None:
     if "head" not in solved or len(solved) < 2:
         raise AssertionError(f"phase l: seed {seed} decoded no parity solve "
                              f"in the head and the trunk: {solved}")
-    for k in ("coded_matvec", "parity_contract", "gen_parity_matvec"):
+    for k in ("coded_matvec", "parity_contract", "parity_contract_wide",
+              "gen_parity_matvec"):
         if grew[k] <= 0:
             raise AssertionError(f"phase l never launched {k}")
     # the identically scheduled uncoded twin: the same bridge, coding off
@@ -4055,6 +4264,7 @@ def main() -> int:
                                             "mds_encode",
                                             "counter_parity_rows",
                                             "parity_contract",
+                                            "parity_contract_wide",
                                             "gen_parity_matvec", "wkv6",
                                             "wkv6_bwd")]}))
     print(json.dumps({"ok": True, "device": {

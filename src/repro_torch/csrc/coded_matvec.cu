@@ -24,8 +24,7 @@
 // Design, for what limits a stream of A on this card:
 //  * Bytes in flight.  A warp reduces RPW = 2 rows at once; each lane
 //    issues U trips of RPW 16-byte read-only loads of A (U = 8 for one or
-//    two columns, 256 B a lane; 4 for up to four, 128 B; 2 beyond; half
-//    that where X is read element by element, so nothing spills) before
+//    two columns, 256 B a lane; 4 for up to four, 128 B; 2 beyond) before
 //    the FMAs that consume them.  Two blocks of 8 warps an SM (the launch
 //    bounds hold the registers to that residency) keep 32-128 KB of A in
 //    flight an SM.  (PERF.md records the other RPW, U, load hints and
@@ -34,9 +33,27 @@
 //    the size of one launch's X: "staged" copies X[:, c0:c0+cc] whole into
 //    shared memory, transposed to [c][k] so that each lane's 16-byte read
 //    is conflict-free and serves RPW rows (the serving tiles: a 32 KB
-//    slab); "direct", for a long K with few columns (the executor and the
-//    verify: 80 KB a task at K = 1e4 doubles), reads X through L1/L2 and
-//    uses no shared memory, so registers alone bound the residency.
+//    slab); "direct", for a long K (the executor and the verify: 80 KB a
+//    task at K = 1e4 doubles; the coded heads and the trunk's down past K
+//    4096 at C = 4: 114-128 KB), reads X through L1/L2 and uses no shared
+//    memory, so registers alone bound the residency and L1 takes the
+//    whole carveout.
+//  * X on the direct route, 16-byte vectors a lane.  A lane needs, for its
+//    vector q of A, the NV elements k = q NV .. q NV + NV - 1 of each of
+//    the launch's columns.  C = 1: X's vector q itself (XV).  Where a row
+//    of the launch's columns is a whole number of 16-byte vectors (C, c0
+//    and cc multiples of the vector, X aligned) and the lane's rows span
+//    at most 64 bytes (cc <= 4), the lane loads its NV rows whole (XROWS:
+//    C = 4 float32, C = 2 or 4 float64).  Elsewhere -- and at 8 float32
+//    columns, where the rows' loads touch 4x the L1 lines and took twice
+//    the time -- the launch first copies X[:, c0:c0+cc] of
+//    every task into a [cc][K] scratch -- the staged route's layout, in
+//    global memory -- and a lane's 16-byte load of column c's vector q
+//    sits beside its neighbours' (XCOPY; a second, tiny kernel of the same
+//    launch).  The parent read X element by element, 64 bytes apart
+//    across a warp at C = 4 float32 (XELEM, still run by route 2 to time
+//    the two on the same inputs): ~16 L1 lines an instruction, which held
+//    the DeepSeek head to ~1 TB/s.
 //  * Balance.  The grid is (blocks per task, tasks), a whole wave of
 //    resident blocks where the rows allow; block x of a task owns the
 //    contiguous rows [x * rows_per_block, (x + 1) * rows_per_block), so
@@ -44,9 +61,10 @@
 //    with a partial round; its warps take the range's groups of RPW rows
 //    in turn.
 //  * Determinism.  Lane l sums the 16-byte vectors q = l, l + 32, ... of a
-//    row in increasing order and the lanes are combined by a fixed
-//    butterfly: a row's sum has one order whatever the plan, and repeated
-//    calls are bit-equal (no atomics).
+//    row in increasing order, each vector's elements in order, and the
+//    lanes are combined by a fixed butterfly: a row's sum has one order
+//    whatever the plan or the way X is read (every X path is bit-equal to
+//    the others), and repeated calls are bit-equal (no atomics).
 // float -> float with C > 8 is split into 8-column chunks by the host, one
 // launch each (the reference's float32 sums); the C entry point checks the
 // plan and the residency it assumes.
@@ -110,9 +128,12 @@ constexpr int WARPS = 8, THREADS = WARPS * 32, MINB = 2, RPW = 2;
 // plan.MV_STAGE_MAX: the largest X slab the staged route takes
 constexpr int STAGE_MAX = 64 * 1024;
 
+// How a launch of the narrow routes reads X (see above)
+enum XMode { STAGED, XV, XROWS, XCOPY, XELEM };
+
 // 16-byte trips of RPW loads a lane issues before its FMAs; half as many
-// where X is read element by element from global memory (XG), whose
-// registers spill at the full depth
+// where X is read element by element (XELEM), whose registers spill at the
+// full depth
 template <int CC, bool XG>
 __host__ __device__ constexpr int trips() {
   return (CC <= 2 ? 8 : CC <= 4 ? 4 : 2) / (XG ? 2 : 1);
@@ -161,21 +182,36 @@ __device__ __forceinline__ double2 load_a(const double2* p) {
   return v;
 }
 
-// STAGED: X[:, c0:c0+CC] in shared memory as [CC][K].  Else X from global
-// memory; XV: C == 1 and X 16-byte aligned, so a lane reads X's vector q
-// in one load.
-template <typename TI, typename TA, int CC, bool STAGED, bool XV>
+// X's columns [c0, c0 + CC) of every task as [task][CC][K] (XCOPY's
+// scratch): written coalesced, read with a stride of C
+template <typename TI>
+__global__ void __launch_bounds__(256)
+copy_columns_kernel(const TI* __restrict__ X, TI* __restrict__ XT, int B,
+                    int K, int C, int c0, int cc) {
+  const size_t per = (size_t)cc * K, n = per * B;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t b = i / per, r = i % per;
+    XT[i] = X[(b * K + r % K) * C + c0 + r / K];
+  }
+}
+
+// XM selects how X is read (XMode): STAGED, X[:, c0:c0+CC] in shared
+// memory as [CC][K]; XV, C == 1 and X 16-byte aligned, X's vector q in one
+// load; XROWS, a row's CC columns as CC / NV whole vectors; XCOPY, X is
+// the launch's [task][CC][K] copy; XELEM, element by element.
+template <typename TI, typename TA, int CC, int XM>
 __global__ void __launch_bounds__(THREADS, MINB)
 coded_matvec_kernel(const TI* __restrict__ A, const TI* __restrict__ X,
                     TA* __restrict__ Y, int R, int K, int C, int c0,
                     int rows_per_block) {
   using V = typename Vec16<TI>::type;
   constexpr int NV = 16 / sizeof(TI);      // elements per 16-byte load
-  constexpr int U = trips<CC, !STAGED && !XV>();
+  constexpr int U = trips<CC, XM == XELEM>();
   extern __shared__ __align__(16) unsigned char smem[];
   const int task = blockIdx.y;
   A += (size_t)task * R * K;
-  X += (size_t)task * K * C;
+  X += (size_t)task * K * (XM == XCOPY ? CC : C);
   Y += (size_t)task * R * C;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int KV = K / NV;
@@ -183,7 +219,7 @@ coded_matvec_kernel(const TI* __restrict__ A, const TI* __restrict__ X,
   const int b_end = min(R, b_begin + rows_per_block);
 
   const V* xsv = reinterpret_cast<const V*>(smem);     // [CC][KV]
-  if constexpr (STAGED) {
+  if constexpr (XM == STAGED) {
     TI* xs = reinterpret_cast<TI*>(smem);
     for (int i = threadIdx.x; i < K * CC; i += THREADS) {
       const int k = i / CC, c = i % CC;
@@ -194,10 +230,12 @@ coded_matvec_kernel(const TI* __restrict__ A, const TI* __restrict__ X,
   // X's 16-byte vector q of column c (zero past K)
   auto load_x = [&](int c, int q) -> V {
     if (q >= KV) return V{};
-    if constexpr (STAGED) {
+    if constexpr (XM == STAGED) {
       return xsv[c * KV + q];
-    } else if constexpr (XV) {
+    } else if constexpr (XM == XV) {
       return __ldg(reinterpret_cast<const V*>(X) + q);
+    } else if constexpr (XM == XCOPY) {
+      return __ldg(reinterpret_cast<const V*>(X) + (size_t)c * KV + q);
     } else {
       V v;
 #pragma unroll
@@ -231,17 +269,44 @@ coded_matvec_kernel(const TI* __restrict__ A, const TI* __restrict__ X,
           a[u][r] = (q < KV && r < nr) ? load_a(arow[r] + q) : V{};
         }
 #pragma unroll
-      for (int u = 0; u < U; ++u)
+      for (int u = 0; u < U; ++u) {
+        const int q = q0 + 32 * u;
+        if constexpr (XM == XROWS) {
+          // element e of the vector, column c: the NV rows of X the
+          // vector spans, each CC / NV whole 16-byte vectors
+          TI xr[NV][CC];
 #pragma unroll
-        for (int c = 0; c < CC; ++c) {
-          const V xv = load_x(c, q0 + 32 * u);
+          for (int e = 0; e < NV; ++e) {
+            const V* xrow = reinterpret_cast<const V*>(
+                X + (size_t)(q * NV + e) * C + c0);
 #pragma unroll
-          for (int r = 0; r < RPW; ++r)
+            for (int v = 0; v < CC / NV; ++v) {
+              const V w = q < KV ? __ldg(xrow + v) : V{};
 #pragma unroll
-            for (int e = 0; e < NV; ++e)
-              acc[r][c] = fma_t(TA(vget(a[u][r], e)), TA(vget(xv, e)),
-                                acc[r][c]);
+              for (int t = 0; t < NV; ++t) xr[e][v * NV + t] = vget(w, t);
+            }
+          }
+#pragma unroll
+          for (int c = 0; c < CC; ++c)
+#pragma unroll
+            for (int r = 0; r < RPW; ++r)
+#pragma unroll
+              for (int e = 0; e < NV; ++e)
+                acc[r][c] = fma_t(TA(vget(a[u][r], e)), TA(xr[e][c]),
+                                  acc[r][c]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < CC; ++c) {
+            const V xv = load_x(c, q);
+#pragma unroll
+            for (int r = 0; r < RPW; ++r)
+#pragma unroll
+              for (int e = 0; e < NV; ++e)
+                acc[r][c] = fma_t(TA(vget(a[u][r], e)), TA(vget(xv, e)),
+                                  acc[r][c]);
+          }
         }
+      }
     }
 #pragma unroll
     for (int r = 0; r < RPW; ++r) {
@@ -264,18 +329,18 @@ coded_matvec_kernel(const TI* __restrict__ A, const TI* __restrict__ X,
   }
 }
 
-template <typename TI, typename TA, int CC, bool STAGED, bool XV>
+template <typename TI, typename TA, int CC, int XM>
 int launch(const TI* A, const TI* X, TA* Y, int B, int R, int K, int C,
            int c0, int blocks, int rows_per_block, int slab_bytes,
            int per_sm, cudaStream_t st) {
-  auto kern = coded_matvec_kernel<TI, TA, CC, STAGED, XV>;
+  auto kern = coded_matvec_kernel<TI, TA, CC, XM>;
   // the attribute and the residency are looked up once per instantiation
   // and slab size (host work a call, not device work)
   static int cached_slab = -1, resident = 0;
   if (slab_bytes != cached_slab) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, STAGE_MAX);
-    if (err == cudaSuccess && !STAGED)
+    if (err == cudaSuccess && XM != STAGED)
       err = cudaFuncSetAttribute(
           kern, cudaFuncAttributePreferredSharedMemoryCarveout,
           cudaSharedmemCarveoutMaxL1);
@@ -293,50 +358,96 @@ int launch(const TI* A, const TI* X, TA* Y, int B, int R, int K, int C,
   return (int)cudaGetLastError();
 }
 
-template <typename TI, typename TA, bool STAGED>
-int run_route(const void* A, const void* X, void* Y, int B, int R, int K,
-              int C, int c0, int cc, int blocks, int rows_per_block,
-              int slab_bytes, int per_sm, cudaStream_t st) {
-  const TI* a = static_cast<const TI*>(A);
-  const TI* x = static_cast<const TI*>(X);
-  TA* y = static_cast<TA*>(Y);
-#define REPRO_MV(CC, XV)                                                   \
-  return launch<TI, TA, CC, STAGED, XV>(a, x, y, B, R, K, C, c0, blocks,   \
-                                        rows_per_block, slab_bytes,        \
-                                        per_sm, st)
-  if constexpr (!STAGED) {
-    if (C == 1 && (reinterpret_cast<uintptr_t>(X) & 15) == 0)
-      REPRO_MV(1, true);
-  }
-  switch (cc) {
-    case 1: REPRO_MV(1, false);
-    case 2: REPRO_MV(2, false);
-    case 3: REPRO_MV(3, false);
-    case 4: REPRO_MV(4, false);
-    case 5: REPRO_MV(5, false);
-    case 6: REPRO_MV(6, false);
-    case 7: REPRO_MV(7, false);
-    default: REPRO_MV(8, false);
+// XCOPY's prologue: X[:, c0:c0+cc] of every task into `xt`
+template <typename TI>
+int copy_columns(const TI* X, TI* xt, int B, int K, int C, int c0, int cc,
+                 cudaStream_t st) {
+  const long long n = (long long)B * cc * K;
+  const int blocks = (int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
+  if (n > 0)
+    copy_columns_kernel<TI><<<blocks, 256, 0, st>>>(X, xt, B, K, C, c0, cc);
+  return (int)cudaGetLastError();
+}
+
+template <typename TI, typename TA, int CC>
+int run_cc(int xm, const TI* a, const TI* x, TA* y, int B, int R, int K,
+           int C, int c0, int blocks, int rows_per_block, int slab_bytes,
+           int per_sm, cudaStream_t st) {
+#define REPRO_MV(XM)                                                       \
+  return launch<TI, TA, CC, XM>(a, x, y, B, R, K, C, c0, blocks,           \
+                                rows_per_block, slab_bytes, per_sm, st)
+  switch (xm) {
+    case STAGED: REPRO_MV(STAGED);
+    case XCOPY: REPRO_MV(XCOPY);
+    case XELEM: REPRO_MV(XELEM);
+    case XROWS:
+      if constexpr (CC * sizeof(TI) % 16 == 0) REPRO_MV(XROWS);
+      return (int)cudaErrorInvalidValue;
+    case XV:
+      if constexpr (CC == 1) REPRO_MV(XV);
+      return (int)cudaErrorInvalidValue;
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 #undef REPRO_MV
 }
 
+// route 0 staged, 1 direct, 2 the parent's direct route (X read element
+// by element unless C == 1); `xcopy` the direct route's [B][cc][K]
+// scratch, or null where X is read in place (aligned, and C == 1 or whole
+// 16-byte vectors a row)
 template <typename TI, typename TA>
 int run(int route, const void* A, const void* X, void* Y, int B, int R,
         int K, int C, int c0, int blocks, int rows_per_block,
-        int slab_bytes, int per_sm, cudaStream_t st) {
+        int slab_bytes, int per_sm, void* xcopy, cudaStream_t st) {
+  constexpr int NV = 16 / (int)sizeof(TI);
   const int cc = C - c0 < 8 ? C - c0 : 8;
-  if (K % (16 / (int)sizeof(TI))) return (int)cudaErrorInvalidValue;
+  if (K % NV) return (int)cudaErrorInvalidValue;
+  const TI* a = static_cast<const TI*>(A);
+  const TI* x = static_cast<const TI*>(X);
+  TA* y = static_cast<TA*>(Y);
+  int xm;
   if (route == 0) {
     if ((long long)slab_bytes != (long long)cc * K * (long long)sizeof(TI) ||
-        slab_bytes > STAGE_MAX)
+        slab_bytes > STAGE_MAX || xcopy != nullptr)
       return (int)cudaErrorInvalidValue;
-    return run_route<TI, TA, true>(A, X, Y, B, R, K, C, c0, cc, blocks,
-                                   rows_per_block, slab_bytes, per_sm, st);
+    xm = STAGED;
+  } else if (route == 2) {
+    if (slab_bytes != 0 || xcopy != nullptr) return (int)cudaErrorInvalidValue;
+    xm = C == 1 && gemm::aligned16(X) ? XV : XELEM;
+  } else if (route == 1 && slab_bytes == 0) {
+    if (xcopy != nullptr) {
+      TI* xt = static_cast<TI*>(xcopy);
+      const int err = copy_columns<TI>(x, xt, B, K, C, c0, cc, st);
+      if (err != 0) return err;
+      x = xt;
+      xm = XCOPY;
+    } else if (!gemm::aligned16(X)) {
+      return (int)cudaErrorInvalidValue;
+    } else if (C == 1) {
+      xm = XV;
+    } else if (C % NV == 0 && c0 % NV == 0 && cc % NV == 0) {
+      xm = XROWS;
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
-  if (route != 1 || slab_bytes != 0) return (int)cudaErrorInvalidValue;
-  return run_route<TI, TA, false>(A, X, Y, B, R, K, C, c0, cc, blocks,
-                                  rows_per_block, 0, per_sm, st);
+#define REPRO_CC(CC)                                                     \
+  return run_cc<TI, TA, CC>(xm, a, x, y, B, R, K, C, c0, blocks,         \
+                            rows_per_block, slab_bytes, per_sm, st)
+  switch (cc) {
+    case 1: REPRO_CC(1);
+    case 2: REPRO_CC(2);
+    case 3: REPRO_CC(3);
+    case 4: REPRO_CC(4);
+    case 5: REPRO_CC(5);
+    case 6: REPRO_CC(6);
+    case 7: REPRO_CC(7);
+    default: REPRO_CC(8);
+  }
+#undef REPRO_CC
 }
 
 // -- the wide route ---------------------------------------------------------
@@ -630,13 +741,15 @@ extern "C" {
 // 2 = double in and out.  K must be a multiple of the 16-byte vector width
 // and A 16-byte aligned (the wrapper checks both).  The launch runs on the
 // plan of kernels/plan.py's matvec_plan for this chunk: `route` (0 staged,
-// 1 direct), `blocks` per task of `rows_per_block` rows (covering R with
-// none empty), the staged X slab `slab_bytes` (0 when direct), and the
-// residency `per_sm` the grid was sized for, which the card must hold.
+// 1 direct; 2 the parent's direct route, to time the two), `blocks` per
+// task of `rows_per_block` rows (covering R with none empty), the staged X
+// slab `slab_bytes` (0 when direct), the residency `per_sm` the grid was
+// sized for, which the card must hold, and the direct route's X copy
+// `xcopy` (B x cc x K elements of the input type, or null: see run()).
 int repro_coded_matvec(int types, const void* A, const void* X, void* Y,
                        int B, int R, int K, int C, int c0, int route,
                        int blocks, int rows_per_block, int slab_bytes,
-                       int per_sm, void* stream) {
+                       int per_sm, void* xcopy, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || R <= 0 || c0 < 0 || c0 >= C) return 0;
   if (B > 65535) return (int)cudaErrorInvalidConfiguration;
@@ -646,13 +759,14 @@ int repro_coded_matvec(int types, const void* A, const void* X, void* Y,
     return (int)cudaErrorInvalidValue;
   switch (types) {
     case 0: return run<float, float>(route, A, X, Y, B, R, K, C, c0, blocks,
-                                     rows_per_block, slab_bytes, per_sm, st);
+                                     rows_per_block, slab_bytes, per_sm,
+                                     xcopy, st);
     case 1: return run<float, double>(route, A, X, Y, B, R, K, C, c0,
                                       blocks, rows_per_block, slab_bytes,
-                                      per_sm, st);
+                                      per_sm, xcopy, st);
     case 2: return run<double, double>(route, A, X, Y, B, R, K, C, c0,
                                        blocks, rows_per_block, slab_bytes,
-                                       per_sm, st);
+                                       per_sm, xcopy, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

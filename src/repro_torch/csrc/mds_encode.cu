@@ -43,11 +43,42 @@
 // no atomics, so repeated calls give the same bits.  With a column-index
 // operand it derives only the columns a decode needs (R[par, known]);
 // without one it takes columns 0..m-1 (the generated-parity lanes, Z =
-// W @ X precomputed once per call by the coded_matvec kernel).  The rows
-// kernel writes its 8 x 4 entries a thread coalesced along the row, for
-// decode minors (R[par, unk]) and parity-block encodes.
+// W @ X precomputed once per call by the coded_matvec kernel).  It takes
+// 1 <= C <= 8 columns of Z; the rows kernel writes its 8 x 4 entries a
+// thread coalesced along the row, for decode minors (R[par, unk]) and
+// parity-block encodes.
+//
+// The wide contraction (more than 8 float64 columns: the trunk decodes'
+// known term at a prefill, C = 32, and the generated-parity lanes of a
+// wide prefill).  The narrow kernel keeps C accumulators for each of its 8
+// rows a thread, so it is compiled for C <= 8 and a wider Z took one
+// launch per 8 columns, each deriving every entry again: at C = 32 four
+// times the threefry work that bounds it.  Design:
+//  * One launch computes up to 64 columns (plan.CT_WIDE_COLS; the host
+//    splits a wider Z into chunks of 64), and derives each entry once.
+//  * A block owns 32 rows.  A stage of 64 columns: the block's 256 threads
+//    derive the 32 x 64 entries, 8 rows of one column a thread (8
+//    independent chains, the narrow kernel's entry arithmetic bit for
+//    bit), widen them exactly and store them to a shared [32][64] double
+//    tile, while cp.async brings the stage's 64 rows of Z; then the
+//    warps contract the tile on the FP64 tensor cores (mma.sync
+//    m16n8k8), each warp one m16 tile against its n8 tiles of the chunk.
+//    The tiles' rows are padded to 4 mod 16 doubles, so every fragment
+//    read is free of bank conflicts.  142 integer operations an entry
+//    against 2 C FLOP: the derivation still bounds it.
+//  * The m columns are split into at most 8 slabs of a length that is a
+//    function of m alone (plan.contract_plan): the blocks of one row
+//    block form a thread-block cluster along the slabs and sum their
+//    partial tiles in slab order over the cluster's shared memory, as the
+//    wide coded_matvec does.  A column's sum has one order -- stage by
+//    stage, the mma's k order, then the slabs -- whatever C, the column's
+//    place among the others, n or the card, and repeated calls are
+//    bit-equal.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gemm_common.cuh"
 
 namespace {
 
@@ -261,6 +292,215 @@ int contract(uint32_t k0, uint32_t k1, float scale, const uint32_t* ctrs,
 #undef CASE
 }
 
+// -- the wide contraction ---------------------------------------------------
+namespace wide {
+
+namespace cg = cooperative_groups;
+
+// plan.CT_WIDE_ROWS (rows a block), plan.CT_WIDE_BK (columns of R a
+// stage), plan.CT_WIDE_COLS, plan.CT_WIDE_MAX_SPLITS
+constexpr int BM = 32, BK = 64, COLS = 64, MAX_SPLITS = 8;
+constexpr int RS_LD = BK + 4;       // doubles a row of the R tile
+static_assert(BM == 4 * ROWS && BK * 4 == THREADS,
+              "a stage's entries: 8 rows of one column a thread");
+
+// NT n8 tiles of columns
+template <int NT>
+struct Tile {
+  static constexpr int CW = 8 * NT;
+  static constexpr int ZS_LD = CW + 4;              // doubles a row of Z's
+  static constexpr int RS = BM * RS_LD;             // doubles of the R tile
+  static constexpr int SMEM = (RS + BK * ZS_LD) * 8;
+  static constexpr int RED_LD = CW + 2;             // doubles a partial row
+  static_assert(BM * RED_LD <= RS + BK * ZS_LD,
+                "the partial tile reuses the stage's tiles");
+};
+
+__device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[4],
+                                     const double (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// Y[:, c0:c0+cc] of rows [32 x, 32 x + 32) over the column slab y; the
+// cluster of a row block's slabs sums them.  Fragments (PTX m16n8k8 .f64):
+// lane (g, t) holds A rows g and g + 8 at k = t and t + 4, B's k = t and
+// t + 4 at column g, and C rows g and g + 8 at columns 2 t and 2 t + 1.
+template <int NT, bool GATHER>
+__global__ void __launch_bounds__(THREADS, 2)
+parity_contract_wide_kernel(uint32_t k0, uint32_t k1, uint32_t one,
+                            float scale, const uint32_t* __restrict__ ctrs,
+                            int n, const uint32_t* __restrict__ cols, int m,
+                            const double* __restrict__ Z, int C, int c0,
+                            int cc, double* __restrict__ Y, int splits,
+                            int m_span) {
+  using T = Tile<NT>;
+  constexpr int NJ = (NT + 3) / 4;                  // n8 tiles a warp
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* rs = reinterpret_cast<double*>(smem);    // [BM][RS_LD]
+  double* zs = rs + T::RS;                          // [BK][ZS_LD]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.x * BM, z = blockIdx.y;
+  const Key k = make_key(k0, k1, one);
+  // the entries a thread derives: column dj of each stage, rows dr + 0..7
+  const int dj = tid % BK, dr = (tid / BK) * ROWS;
+  uint32_t x0[ROWS];
+  row_keys(k, ctrs, row0 + dr, n, x0);
+  const int j_begin = z * m_span, j_end = min(m, j_begin + m_span);
+  const int n_stages = j_end > j_begin ? (j_end - j_begin + BK - 1) / BK : 0;
+  // the warp's m16 tile and n8 tiles jw, jw + 4
+  const int mt = warp & 1, jw = warp >> 1, n_live = (cc + 7) / 8;
+
+  double acc[NJ][4];
+#pragma unroll
+  for (int i = 0; i < NJ; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0;
+
+  for (int s = 0; s < n_stages; ++s) {
+    const int j0 = j_begin + s * BK;
+    // Z's rows [j0, j0 + BK) x columns [c0, c0 + CW), zero past the slab
+    // and cc
+#pragma unroll
+    for (int e = tid; e < BK * T::CW; e += THREADS) {
+      const int kk = e / T::CW, c = e % T::CW;
+      const bool ok = j0 + kk < j_end && c < cc;
+      gemm::cp_async<8>(zs + kk * T::ZS_LD + c,
+                        ok ? Z + (size_t)(j0 + kk) * C + c0 + c : Z,
+                        ok ? 8 : 0);
+    }
+    gemm::cp_async_commit();
+    // the stage's entries, widened exactly (zero past the slab)
+    const int j = j0 + dj;
+    if (j < j_end) {
+      const Col col = make_col(k, GATHER ? __ldg(cols + j) : (uint32_t)j);
+      float v[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) v[r] = parity_entry(k, x0[r], col, scale);
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+        rs[(dr + r) * RS_LD + dj] = static_cast<double>(v[r]);
+    } else {
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) rs[(dr + r) * RS_LD + dj] = 0.0;
+    }
+    gemm::cp_async_wait<0>();
+    __syncthreads();            // the stage's R and Z tiles are whole
+#pragma unroll
+    for (int ks = 0; ks < BK / 8; ++ks) {
+      const double* ra = rs + (mt * 16 + g) * RS_LD + ks * 8 + t;
+      const double a[4] = {ra[0], ra[8 * RS_LD], ra[4], ra[8 * RS_LD + 4]};
+      const double* zb = zs + (ks * 8 + t) * T::ZS_LD + g;
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) {
+        const int jt = jw + 4 * i;
+        if (jt < NT && jt < n_live) {
+          const double b[2] = {zb[8 * jt], zb[4 * T::ZS_LD + 8 * jt]};
+          dmma(acc[i], a, b);
+        }
+      }
+    }
+    __syncthreads();            // every warp is done with the stage's tiles
+  }
+
+  if (splits == 1) {
+#pragma unroll
+    for (int i = 0; i < NJ; ++i) {
+      const int jt = jw + 4 * i;
+      if (jt >= NT || jt >= n_live) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + mt * 16 + g + 8 * h, c = 8 * jt + 2 * t;
+        if (row >= n) continue;
+        double* yrow = Y + (size_t)row * C + c0;
+        if (c < cc) yrow[c] = acc[i][2 * h];
+        if (c + 1 < cc) yrow[c + 1] = acc[i][2 * h + 1];
+      }
+    }
+    return;
+  }
+  // the slab's partial tile into this block's shared memory, then the
+  // cluster's sum of every slab's tile in slab order
+  double* red = rs;
+#pragma unroll
+  for (int i = 0; i < NJ; ++i) {
+    const int jt = jw + 4 * i;
+    if (jt >= NT || jt >= n_live) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<double2*>(red + (mt * 16 + g + 8 * h) * T::RED_LD +
+                                  8 * jt + 2 * t) =
+          make_double2(acc[i][2 * h], acc[i][2 * h + 1]);
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int per = (BM + splits - 1) / splits;
+  const int rb = z * per, re = min(BM, rb + per);
+  for (int e = tid; e < (re - rb) * cc; e += THREADS) {
+    const int r = rb + e / cc, c = e % cc;
+    const int off = r * T::RED_LD + c;
+    double sum = cluster.map_shared_rank(red, 0)[off];
+    for (int q = 1; q < splits; ++q)
+      sum += cluster.map_shared_rank(red, q)[off];
+    if (row0 + r < n) Y[(size_t)(row0 + r) * C + c0 + c] = sum;
+  }
+  cluster.sync();               // no block leaves while its tile is read
+}
+
+template <int NT, bool GATHER>
+int launch(uint32_t k0, uint32_t k1, float scale, const uint32_t* ctrs,
+           int n, const uint32_t* cols, int m, const double* Z, int C,
+           int c0, int cc, double* Y, int row_blocks, int splits, int m_span,
+           cudaStream_t st) {
+  using T = Tile<NT>;
+  auto kern = parity_contract_wide_kernel<NT, GATHER>;
+  static bool ready = false;          // the attribute, once an instantiation
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(row_blocks, splits);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = T::SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  const uint32_t one = 1u;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kern, k0, k1, one, scale, ctrs, n, cols, m, Z,
+                         C, c0, cc, Y, splits, m_span);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <bool GATHER>
+int run(uint32_t k0, uint32_t k1, float scale, const uint32_t* ctrs, int n,
+        const uint32_t* cols, int m, const double* Z, int C, int c0,
+        double* Y, int row_blocks, int splits, int m_span, cudaStream_t st) {
+  const int cc = C - c0 < COLS ? C - c0 : COLS;
+#define REPRO_CT(NT)                                                       \
+  return launch<NT, GATHER>(k0, k1, scale, ctrs, n, cols, m, Z, C, c0, cc, \
+                            Y, row_blocks, splits, m_span, st)
+  if (cc <= 16) REPRO_CT(2);
+  if (cc <= 32) REPRO_CT(4);
+  REPRO_CT(8);
+#undef REPRO_CT
+}
+
+}  // namespace wide
+
 }  // namespace
 
 extern "C" {
@@ -279,7 +519,8 @@ int repro_counter_parity_rows(uint32_t k0, uint32_t k1, float scale,
   return (int)cudaGetLastError();
 }
 
-// Y (n, C) = R(ctrs, cols) @ Z, Z (m, C) row-major, 1 <= C <= 8, cols
+// Y (n, C) = R(ctrs, cols) @ Z, Z (m, C) row-major, 1 <= C <= 8 (the
+// narrow kernel; wider float64 Z takes repro_parity_contract_wide), cols
 // (m,) column indices or null for 0..m-1; `f64` selects float64 Z,
 // accumulation and Y (else float32 throughout, columns 0..m-1 only).
 int repro_parity_contract(int f64, uint32_t k0, uint32_t k1, float scale,
@@ -297,6 +538,35 @@ int repro_parity_contract(int f64, uint32_t k0, uint32_t k1, float scale,
                                       Y, st)
              : contract<double, false>(k0, k1, scale, ctrs, n, cols, m, Z,
                                        C, Y, st);
+}
+
+
+// The wide contraction: Y[:, c0:c0+cc] = R(ctrs, cols) @ Z[:, c0:c0+cc] in
+// float64, cc = min(C - c0, 64), Z (m, C) and Y (n, C) row-major, cols as
+// above (the caller loops over 64-column chunks).  The plan of
+// kernels/plan.py's contract_plan (route "wide"): `row_blocks` =
+// ceil(n / 32) blocks of 32 rows, `splits` <= 8 column slabs of `m_span`
+// (a multiple of 64) that cover m with none empty, one cluster of
+// `splits` blocks a row block.
+int repro_parity_contract_wide(uint32_t k0, uint32_t k1, float scale,
+                               const uint32_t* ctrs, int n,
+                               const uint32_t* cols, int m, const void* Z,
+                               int C, int c0, void* Y, int row_blocks,
+                               int splits, int m_span, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n <= 0) return 0;
+  if (m < 0 || c0 < 0 || c0 >= C ||
+      row_blocks != (n + wide::BM - 1) / wide::BM ||
+      splits > wide::MAX_SPLITS ||
+      !gemm::plan_ok(m, splits, m_span, wide::BK))
+    return (int)cudaErrorInvalidValue;
+  const double* z = static_cast<const double*>(Z);
+  double* y = static_cast<double*>(Y);
+  return cols != nullptr
+             ? wide::run<true>(k0, k1, scale, ctrs, n, cols, m, z, C, c0, y,
+                               row_blocks, splits, m_span, st)
+             : wide::run<false>(k0, k1, scale, ctrs, n, cols, m, z, C, c0, y,
+                                row_blocks, splits, m_span, st);
 }
 
 }  // extern "C"

@@ -21,6 +21,7 @@ def launch_counts() -> Dict[str, int]:
             "counter_parity_rows": mds_encode.ROWS_LAUNCHES,
             "gen_parity_matvec": mds_encode.GEN_LAUNCHES,
             "parity_contract": mds_encode.CONTRACT_LAUNCHES,
+            "parity_contract_wide": mds_encode.WIDE_CONTRACT_LAUNCHES,
             "wkv6": wkv6.WKV6_LAUNCHES,
             "wkv6_bwd": wkv6.WKV6_BWD_LAUNCHES}
 
@@ -32,5 +33,6 @@ def reset_launch_counts() -> None:
     mds_encode.ROWS_LAUNCHES = 0
     mds_encode.GEN_LAUNCHES = 0
     mds_encode.CONTRACT_LAUNCHES = 0
+    mds_encode.WIDE_CONTRACT_LAUNCHES = 0
     wkv6.WKV6_LAUNCHES = 0
     wkv6.WKV6_BWD_LAUNCHES = 0

@@ -39,7 +39,7 @@ def _lib():
     lib = _build.library("coded_matvec")
     if not getattr(lib, "_typed", False):
         lib.repro_coded_matvec.argtypes = [I, P, P, P, I, I, I, I, I, I, I,
-                                           I, I, I, P]
+                                           I, I, I, P, P]
         lib.repro_coded_matvec.restype = I
         lib.repro_coded_matvec_wide.argtypes = [I, P, P, P, I, I, I, I, I,
                                                 I, I, I, P]
@@ -57,10 +57,12 @@ def coded_matvec_cuda(a: torch.Tensor, x: torch.Tensor, *,
     grid), each on its plan from :func:`matvec_launches`.  ``out_dtype``
     defaults to the input dtype; K must be a multiple of the 16-byte
     vector width.  ``route="narrow"`` keeps a float64-output product of
-    more than 8 columns on the 8-column launches, for holding the two
-    routes to each other on the same inputs."""
+    more than 8 columns on the 8-column launches, and ``route="element"``
+    runs the direct route's launches as the parent did (X read element by
+    element unless C is 1), for holding two routes to each other on the
+    same inputs."""
     global LAUNCHES
-    if route not in (None, "narrow"):
+    if route not in (None, "narrow", "element"):
         raise ValueError(f"coded_matvec: unknown route {route!r}")
     dev = a.device
     out_dtype = a.dtype if out_dtype is None else out_dtype
@@ -85,7 +87,9 @@ def coded_matvec_cuda(a: torch.Tensor, x: torch.Tensor, *,
                          f"multiple of {vec} and A 16-byte aligned (16-byte "
                          f"loads)")
     C = x.shape[-1]
-    y = torch.empty(a.shape[:-1] + (C,), dtype=out_dtype, device=dev)
+    # a tuple of ints: a torch.Size costs a single call ~3 us more host work
+    y = torch.empty((B, R, C) if nd == 3 else (R, C), dtype=out_dtype,
+                    device=dev)
     if y.numel() == 0:
         return y
     lib, st = _lib(), stream_ptr(dev)
@@ -97,10 +101,16 @@ def coded_matvec_cuda(a: torch.Tensor, x: torch.Tensor, *,
                 types, a.data_ptr(), x.data_ptr(), y.data_ptr(), B, R, K, C,
                 c0, p.grid[0], p.splits, p.k_span, st)
         else:
+            code, xcopy = p.route_code, None
+            if p.route == "direct" and route == "element":
+                code = 2
+            elif p.route == "direct" and (p.x_copy or x.data_ptr() % 16):
+                xcopy = torch.empty(B * p.cc * K, dtype=a.dtype, device=dev)
             err = lib.repro_coded_matvec(
                 types, a.data_ptr(), x.data_ptr(), y.data_ptr(), B, R, K, C,
-                c0, p.route_code, p.grid[0], p.rows_per_block, p.slab_bytes,
-                p.blocks_per_sm, st)
+                c0, code, p.grid[0], p.rows_per_block, p.slab_bytes,
+                p.blocks_per_sm, None if xcopy is None else xcopy.data_ptr(),
+                st)
         raise_on_error("coded_matvec", err)
         LAUNCHES += 1
     return y

@@ -23,24 +23,28 @@ from . import _build
 from ._launch import (F32, I, P, U32, check_cuda, raise_on_error, sm_count,
                       stream_ptr)
 from .coded_matvec import coded_matvec
-from .plan import encode_plan, gemm_plan
+from .plan import contract_launches, encode_plan, gemm_plan
 from .ref import (counter_parity_rows_ref, gen_parity_ref, mds_encode_ref,
                   parity_contract_ref)
 
 __all__ = ["mds_encode_dev", "mds_encode_cuda", "counter_parity_rows_dev",
            "gen_parity_matvec", "parity_contract_dev", "ENCODE_LAUNCHES",
-           "ROWS_LAUNCHES", "GEN_LAUNCHES", "CONTRACT_LAUNCHES"]
+           "ROWS_LAUNCHES", "GEN_LAUNCHES", "CONTRACT_LAUNCHES",
+           "WIDE_CONTRACT_LAUNCHES"]
 
 #: launches of the encode GEMM since the last reset
 ENCODE_LAUNCHES = 0
 #: launches of the counter-rows kernel since the last reset
 ROWS_LAUNCHES = 0
-#: launches of the contraction kernel for generated-parity lanes since the
-#: last reset
+#: launches of the narrow contraction kernel for generated-parity lanes
+#: since the last reset
 GEN_LAUNCHES = 0
-#: launches of the contraction kernel through parity_contract_dev (the
-#: decode's substitution term) since the last reset
+#: launches of the narrow contraction kernel through parity_contract_dev
+#: (the decode's substitution term) since the last reset
 CONTRACT_LAUNCHES = 0
+#: launches of the wide contraction kernel (more than 8 float64 columns),
+#: through either wrapper, since the last reset
+WIDE_CONTRACT_LAUNCHES = 0
 
 _M32 = 0xFFFFFFFF
 
@@ -54,6 +58,9 @@ def _lib():
         lib.repro_parity_contract.argtypes = [I, U32, U32, F32, P, I, P, I,
                                               P, I, P, P]
         lib.repro_parity_contract.restype = I
+        lib.repro_parity_contract_wide.argtypes = [U32, U32, F32, P, I, P, I,
+                                                   P, I, I, P, I, I, I, P]
+        lib.repro_parity_contract_wide.restype = I
         lib._typed = True
     return lib
 
@@ -178,42 +185,68 @@ def counter_parity_rows_dev(key, scale: float, ctrs: torch.Tensor,
 
 
 def _contract(key, scale: float, c32: torch.Tensor, j32, z: torch.Tensor,
-              what: str) -> Tuple[torch.Tensor, int]:
-    """R[c32][:, j32 or 0..m-1] @ z on the card, one launch per 8 columns
-    of z → (out (n, C) in z's dtype, launches)."""
+              what: str, route: Optional[str] = None
+              ) -> Tuple[torch.Tensor, int]:
+    """R[c32][:, j32 or 0..m-1] @ z on the card, on the launches of
+    :func:`repro_torch.kernels.plan.contract_launches` (a float32 z takes
+    the narrow route) → (out (n, C) in z's dtype, narrow launches); the
+    wide launches are counted here."""
+    global WIDE_CONTRACT_LAUNCHES
     dev = z.device
     n, (m, C) = c32.numel(), z.shape
+    f64 = z.dtype == torch.float64
+    if route == "wide" and not f64:
+        raise ValueError(f"{what}: the wide route takes a float64 z, got "
+                         f"{z.dtype}")
     out = torch.empty((n, C), dtype=z.dtype, device=dev)
-    launches = 0
-    for c0 in range(0, C, 8):
-        cc = min(8, C - c0)
-        zc = z[:, c0:c0 + cc].contiguous() if C > 8 else z
-        yc = out if C <= 8 else torch.empty((n, cc), dtype=z.dtype,
-                                             device=dev)
-        err = _lib().repro_parity_contract(
-            int(z.dtype == torch.float64),
-            int(key[0]) & _M32, int(key[1]) & _M32, float(scale),
-            c32.data_ptr(), n, None if j32 is None else j32.data_ptr(), m,
-            zc.data_ptr(), cc, yc.data_ptr(), stream_ptr(dev))
-        raise_on_error(what, err)
-        launches += 1
-        if C > 8:
-            out[:, c0:c0 + cc] = yc
-    return out, launches
+    lib, st = _lib(), stream_ptr(dev)
+    k0, k1 = int(key[0]) & _M32, int(key[1]) & _M32
+    cols = None if j32 is None else j32.data_ptr()
+    launches = {"narrow": 0, "wide": 0}
+    for c0, p in contract_launches(n, m, C, route if f64 else "narrow"):
+        if p.route == "wide":
+            err = lib.repro_parity_contract_wide(
+                k0, k1, float(scale), c32.data_ptr(), n, cols, m,
+                z.data_ptr(), C, c0, out.data_ptr(), p.grid[0], p.splits,
+                p.m_span, st)
+            raise_on_error(what, err)
+        else:
+            # the narrow kernel takes Z and Y whole: a chunk of a wider z
+            # is copied in and out
+            whole = p.cc == C
+            zc = z if whole else z[:, c0:c0 + p.cc].contiguous()
+            yc = out if whole else torch.empty((n, p.cc), dtype=z.dtype,
+                                               device=dev)
+            err = lib.repro_parity_contract(
+                int(f64), k0, k1, float(scale), c32.data_ptr(), n, cols, m,
+                zc.data_ptr(), p.cc, yc.data_ptr(), st)
+            raise_on_error(what, err)
+            if not whole:
+                out[:, c0:c0 + p.cc] = yc
+        launches[p.route] += 1
+    WIDE_CONTRACT_LAUNCHES += launches["wide"]
+    return out, launches["narrow"]
 
 
 def parity_contract_dev(key, scale: float, ctrs: torch.Tensor,
                         cols: Optional[torch.Tensor], z: torch.Tensor, *,
-                        chunk: Optional[int] = None) -> torch.Tensor:
+                        chunk: Optional[int] = None,
+                        route: Optional[str] = None) -> torch.Tensor:
     """``R[ctrs][:, cols] @ z`` (n, C) float64, R never in memory.
 
     ``ctrs`` (n,) and ``cols`` (m,) integer tensors of uint32 values
     (``cols`` None: columns 0..m-1), ``z`` (m, C) float64, all on one
     device.  Each float32 R entry is widened exactly and accumulated in
     float64, in a fixed order (repeated calls give the same bits); on the
-    card one launch per 8 columns of z.  On the CPU the plain version
-    derives R in row chunks of about ``chunk`` entries."""
+    card one launch for up to 8 columns of z, and past 8 the wide route,
+    one launch per 64 columns, whose column's bits depend only on its
+    data and m.  ``route`` ("narrow" or "wide") overrides that choice on
+    the card, for holding the routes to each other on the same inputs.
+    On the CPU the plain version derives R in row chunks of about
+    ``chunk`` entries."""
     global CONTRACT_LAUNCHES
+    if route not in (None, "narrow", "wide"):
+        raise ValueError(f"parity_contract: unknown route {route!r}")
     dev = z.device
     if z.dtype != torch.float64 or z.dim() != 2:
         raise ValueError(f"parity_contract: expected z (m, C) float64, got "
@@ -237,7 +270,7 @@ def parity_contract_dev(key, scale: float, ctrs: torch.Tensor,
         j32 = _as_u32(cols)
         check_cuda("parity_contract cols", j32, torch.int32, 1, dev)
     check_cuda("parity_contract z", z, torch.float64, 2, dev)
-    out, n = _contract(key, scale, c32, j32, z, "parity_contract")
+    out, n = _contract(key, scale, c32, j32, z, "parity_contract", route)
     CONTRACT_LAUNCHES += n
     return out
 
@@ -251,8 +284,9 @@ def gen_parity_matvec(key, scale: float, ctrs: torch.Tensor, w: torch.Tensor,
     ``out_dtype`` float64 (the default: the products feed a decode)
     accumulates both products in float64; float32 is the reference's
     numerics.  On the card ``W @ x`` runs once through the coded_matvec
-    kernel and the contraction kernel derives every R entry in registers —
-    no R and no WR in memory."""
+    kernel and the contraction kernel derives every R entry on the chip
+    (the wide route's for more than 8 float64 columns) — no R and no WR in
+    memory."""
     global GEN_LAUNCHES
     dev = w.device
     if out_dtype not in (torch.float32, torch.float64):

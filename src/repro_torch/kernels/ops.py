@@ -138,10 +138,10 @@ def parity_contract(key: Tuple[int, int], L: int, ctrs, z: torch.Tensor, *,
     L-column generator: ``z`` (m, C) float64, ``cols`` (m,) column ids
     (None: 0..L-1, so m = L).  The counter-derived entries are the
     same bits as :func:`counter_parity_rows`'; on the card they are
-    contracted in registers and R never exists in memory (one launch per
-    8 columns of z); on the CPU R is derived in row chunks of about
-    ``chunk`` entries.  ``ctrs`` and ``cols`` may be host uint32 arrays or
-    tensors; the result lies on z's device."""
+    contracted on the chip and R never exists in memory (one launch for up
+    to 8 columns of z, past 8 one launch per 64); on the CPU R is derived
+    in row chunks of about ``chunk`` entries.  ``ctrs`` and ``cols`` may
+    be host uint32 arrays or tensors; the result lies on z's device."""
     if cols is None and z.shape[0] != L:
         raise ValueError(f"parity_contract: z of {z.shape[0]} rows for "
                          f"the {L} columns of the generator")

@@ -2,7 +2,8 @@
 ``csrc/mds_encode_gemm.cu``: which tile configuration runs a product, its
 grid, and how far K is split, or the encode's skinny float32 stream), the
 skinny products of ``csrc/coded_matvec.cu`` (route, grid, rows per block,
-X slab, K slabs) and the
+X slab or copy, K slabs), the counter-derived parity contraction of
+``csrc/mds_encode.cu`` (route, grid, column slabs) and the
 WKV recurrence of ``csrc/wkv6.cu`` (route, chunk, grid).
 
 Plain Python, so the CPU tests can check a plan at the path's shapes; the
@@ -25,10 +26,11 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 __all__ = ["TileConfig", "GemmPlan", "CONFIGS", "gemm_plan", "StreamPlan",
            "encode_plan", "MatvecPlan", "matvec_plan", "matvec_launches",
+           "ContractPlan", "contract_plan", "contract_launches",
            "Wkv6Plan", "wkv6_plan", "Wkv6BwdPlan", "wkv6_bwd_plan",
            "wkv6_ops", "wkv6_bwd_ops"]
 
@@ -176,8 +178,11 @@ def encode_plan(dtype: str, M: int, N: int, K: int, batch: int = 1,
 # Narrow routes (C <= 8 columns, or float32 sums): a block of MV_WARPS
 # warps owns a contiguous range of one task's rows and its warps take the
 # range's groups of 2 rows in turn.  "staged": X[:, chunk] whole in shared
-# memory (at most MV_STAGE_MAX bytes); "direct": X read through L1/L2, no
-# shared memory.  The grid is a whole number of waves of MV_BLOCKS_PER_SM
+# memory (at most MV_STAGE_MAX bytes); "direct": X read through L1/L2 in
+# 16-byte vectors, no shared memory -- in place where C is 1 or a row of
+# the chunk is at most 4 whole vectors' worth of columns, else from a
+# [cc][K] copy of the chunk that the launch writes first (``x_copy``).
+# The grid is a whole number of waves of MV_BLOCKS_PER_SM
 # blocks an SM (the residency the kernel's launch bounds hold it to) where
 # the rows allow, and every block's rows are within one of the others'.
 # One launch computes MV_COLS columns.
@@ -216,6 +221,7 @@ class MatvecPlan:
     threads: int
     splits: int = 1         # K slabs (the wide route's cluster size)
     k_span: int = 0         # K elements a slab (the wide route)
+    x_copy: bool = False    # the direct route reads a [cc][K] copy of X
 
     @property
     def route_code(self) -> int:
@@ -271,9 +277,15 @@ def matvec_plan(esz: int, R: int, K: int, C: int, batch: int = 1,
     per_task = max(1, min(slots // batch, _cdiv(R, MV_MIN_ROWS)))
     rows = _cdiv(R, per_task)
     per_task = _cdiv(R, rows)               # no block without rows
+    # X in place where a lane's rows of the chunk are whole 16-byte vectors
+    # and span at most 64 bytes (cc <= 4): at 8 float32 columns the rows'
+    # loads touch 4x the L1 lines of the copy's and took twice its time
+    vec = 16 // esz
+    in_place = C == 1 or (cc <= 4 and C % vec == 0 and c0 % vec == 0
+                          and cc % vec == 0)
     return MatvecPlan("staged" if staged else "direct", cc, (per_task, batch),
                       rows, slab if staged else 0, MV_BLOCKS_PER_SM,
-                      32 * MV_WARPS)
+                      32 * MV_WARPS, x_copy=not (staged or in_place))
 
 
 @functools.lru_cache(maxsize=256)
@@ -284,6 +296,79 @@ def matvec_launches(esz: int, R: int, K: int, C: int, batch: int = 1,
     out, c0 = [], 0
     while c0 < C:
         p = matvec_plan(esz, R, K, C, batch, sms, out_esz, c0)
+        out.append((c0, p))
+        c0 += p.cc
+    return tuple(out)
+
+
+# -- parity_contract (csrc/mds_encode.cu) ------------------------------------
+#
+# "narrow" (at most CT_COLS columns of Z, or float32): blocks of CT_ROWS
+# rows whose threads stride over the m columns, one launch per CT_COLS
+# columns (the narrow kernel takes Z and Y whole, so a chunk of a wider Z
+# is a copy).  "wide" (more than CT_COLS float64 columns): up to
+# CT_WIDE_COLS columns a launch, each R entry derived once a launch into a
+# CT_WIDE_ROWS x CT_WIDE_BK tile and contracted on the FP64 tensor cores;
+# the m columns in ``splits`` slabs of ``m_span`` -- a function of m
+# alone, never of n, C or the card -- summed in slab order inside a
+# thread-block cluster.  The grid is (row blocks, splits).
+
+CT_COLS = 8
+CT_ROWS = 8
+CT_WIDE_COLS = 64
+CT_WIDE_ROWS = 32
+CT_WIDE_BK = 64             # columns of R a stage
+CT_WIDE_MAX_SPLITS = 8      # column slabs: one cluster of at most 8 blocks
+CT_WIDE_MIN_SPAN = 128      # columns a slab takes before m splits more
+
+
+@dataclasses.dataclass(frozen=True)
+class ContractPlan:
+    route: str              # "narrow" | "wide"
+    cc: int                 # columns of Z this launch computes
+    grid: Tuple[int, int]   # (row blocks, splits)
+    splits: int = 1         # column slabs (the wide route's cluster size)
+    m_span: int = 0         # columns a slab (the wide route)
+
+
+def _contract_slabs(m: int) -> Tuple[int, int]:
+    """(splits, m_span) of the wide contraction: slabs of at least
+    CT_WIDE_MIN_SPAN columns, at most CT_WIDE_MAX_SPLITS of them, each a
+    whole number of stages, none empty -- from m alone."""
+    splits = min(CT_WIDE_MAX_SPLITS, max(1, _cdiv(m, CT_WIDE_MIN_SPAN)))
+    span = max(CT_WIDE_BK,
+               _cdiv(_cdiv(max(m, 1), splits), CT_WIDE_BK) * CT_WIDE_BK)
+    return max(1, _cdiv(m, span)), span
+
+
+@functools.lru_cache(maxsize=256)
+def contract_plan(n: int, m: int, C: int, c0: int = 0,
+                  route: Optional[str] = None) -> ContractPlan:
+    """The launch computing the columns from ``c0`` of ``R[n rows, m
+    columns] @ Z (m, C)``: ``route`` "wide" or "narrow", or None for the
+    wide route exactly when C > CT_COLS (a float64 Z: a float32 one takes
+    "narrow"); the next launch starts at ``c0 + cc``."""
+    if min(n, C) <= 0 or m < 0 or not 0 <= c0 < C:
+        raise ValueError(f"contract_plan: bad shape n={n} m={m} C={C} "
+                         f"c0={c0}")
+    if route not in (None, "narrow", "wide"):
+        raise ValueError(f"contract_plan: unknown route {route!r}")
+    if route == "wide" or (route is None and C > CT_COLS):
+        splits, span = _contract_slabs(m)
+        return ContractPlan("wide", min(C - c0, CT_WIDE_COLS),
+                            (_cdiv(n, CT_WIDE_ROWS), splits), splits, span)
+    return ContractPlan("narrow", min(C - c0, CT_COLS),
+                        (_cdiv(n, CT_ROWS), 1))
+
+
+@functools.lru_cache(maxsize=256)
+def contract_launches(n: int, m: int, C: int,
+                      route: Optional[str] = None) -> tuple:
+    """Every launch of one contraction, in order: ``((c0, plan), ...)``
+    whose column chunks cover ``0 .. C - 1`` once."""
+    out, c0 = [], 0
+    while c0 < C:
+        p = contract_plan(n, m, C, c0, route)
         out.append((c0, p))
         c0 += p.cc
     return tuple(out)

@@ -209,7 +209,7 @@ def test_counter_parity_rows_extreme_counters():
     assert np.array_equal(want, got)
 
 
-@pytest.mark.parametrize("C", [1, 4, 11])
+@pytest.mark.parametrize("C", [1, 4, 11, 32, 64])
 def test_parity_contract_matches_reference_rows(C, monkeypatch):
     """R[ctrs][:, cols] @ Z, the decode's substitution term, against the
     reference's rows gathered at random columns times a float64 Z; the

@@ -133,7 +133,7 @@ class Variant:
             self.libs["mds_encode_gemm"].repro_mds_encode.argtypes = [
                 I, P, LL, P, P, I, I, I, I, I, I, I, I, P, P]
             self.libs["coded_matvec"].repro_coded_matvec.argtypes = (
-                [I, P, P, P] + [I] * 10 + [P])
+                [I, P, P, P] + [I] * 10 + [P, P])
         lib = self.libs["mds_encode"]
         lib.repro_counter_parity_rows.argtypes = [U32, U32, F32, P, I, P, I,
                                                   P, P]
@@ -481,7 +481,7 @@ def main() -> int:
 
         def call():
             check(fn(types, a.data_ptr(), x.data_ptr(), y.data_ptr(), B, R,
-                     K, C, 0, *plan_args, st), "coded_matvec")
+                     K, C, 0, *plan_args, None, st), "coded_matvec")
             return y
         return call
 
