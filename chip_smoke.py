@@ -55,7 +55,16 @@ exits non-zero):
      computed alone bit-equal to the whole launch's, 16 calls bit-equal;
      ``coded_matvec`` at deepseek-v3-671b's head tiles (L = 129 536, K =
      7 168, C = 4; row 2d, P / F against the parent's direct route) and
-     the parity kernels at phase n's frozen DeepSeek solve; then the
+     the parity kernels at phase n's frozen DeepSeek solve; the
+     blockwise attention forward and backward (rows 7 / 7g) at
+     llama3.2-1b's serving prefill, gemma3-12b's windowed 4 096-token
+     prefill, DeepSeek-V3's MLA (Dk 192 / Dv 128), phase o's microbatch
+     and a 32 768-token prefill, in bf16 and float32 against the plain
+     versions (forward float32 1e-5, bf16 2^-8 x (1 + max |o|);
+     gradients float32 1e-4, bf16 2^-7 x (1 + max |grad|); windowed rows
+     finite), timed single, queued and from a graph beside
+     ``scaled_dot_product_attention`` (forward and backward), 16 calls
+     bit-equal, and at 11 edge shapes; then the
      decode's two routes for a parity minor on a synthetic head plan
      whose unknowns are known: the float32 LU refined in float64 at s =
      110 500 parity rows (past the float64 minor's cap), and both routes
@@ -102,13 +111,20 @@ exits non-zero):
      that wraps them), dbrx-132b (MoE; 4 layers), internvl2-26b (vision
      frontend) and seamless-m4t-large-v2 (encoder-decoder): init, the
      frontend forward (``mtp_logits``, patches, frames), prefill + decode
-     against the full forward at phase j's gate (MoE uncapped), for the
+     against the full forward at phase j's gate (MoE uncapped), gemma3
+     also prefilled at 1 x 4 096 (its windows span several attention
+     tiles) with every logit of the full forward finite, for the
      MoE models two same-seed full forwards bit-equal, an uncoded serve
      4 x 32 x 16, and the head probe's parity rows; then
      deepseek-v3-671b served with a coded head (virtual parity, the first
      seed of 0-7 whose frozen head solve's float64 minor is under 30
      GiB), gated at the 5e-4 head tolerance, argmax 1.0 and tokens equal
      to its uncoded twin's;
+  s. llama3.2-1b prefilled at its published widths and depth at 1 x
+     32 768 tokens (the prefill_32k length) through ``prefill``: tok/s,
+     peak GiB, the attention launches (16, one a layer); the logits at
+     the last 32 positions finite and within phase j's gate of
+     ``model_fwd``'s over the same tokens;
   o. llama3.2-1b trained at its published widths and depth (bf16,
      AdamW, remat, 2 microbatches of 4 x 128 tokens): 6 steps with a
      checkpoint every 3 (step ms, tokens/s, peak memory, each save's and
@@ -162,7 +178,9 @@ exits non-zero):
      ranks' added; the wide contraction a row of its own; ``wkv6``'s
      row with its backward's, ``wkv6_bwd`` also a row of its own;
      ``mds_encode`` also timed at phase o's coded-gradient shape, row 5g,
-     after the counts are read), then the result line.
+     after the counts are read; ``attention`` and ``attention_bwd``, whose
+     launches come from the prefills and train steps of phases e to q),
+     then the result line.
 
 Phases j to p start from a clean card (every model and bridge released)
 and print the memory still allocated.
@@ -189,6 +207,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12            # outside the tensor cores
 TF32_FLOP_PER_S = 495e12          # TF32 tensor cores
 F64_FLOP_PER_S = 67e12            # FP64 tensor cores (34e12 outside them)
+BF16_FLOP_PER_S = 989.4e12        # dense bf16 tensor cores
 INT32_OP_PER_S = 33.5e12          # white paper's INT32 figure
 #: integer operations a counter-derived parity entry needs: two threefry
 #: calls of 2 (round 1's add and xor) + 19 x 3 (add, rotation, xor) + 5 x
@@ -280,6 +299,9 @@ MIXER_SERVE = (4, 32, 16)
 #: rings
 MIXER_GATE = {"gemma3-12b": (1, 1536, 16)}
 MIXER_GATE_DEFAULT = (4, 32, 3)
+#: phase n's long prefill (arch -> tokens): gemma3's 1 024-token windows
+#: then span several of the attention kernel's query tiles and key steps
+MIXER_LONG = {"gemma3-12b": 4096}
 #: phase n's DeepSeek seed: the first of these whose frozen head plan
 #: (``plan_probe``, head scope) needs a float64 minor under the limit
 MIXER_SEEDS = range(8)
@@ -289,6 +311,27 @@ MINOR_LIMIT_GIB = 30.0
 WKV_H, WKV_K = 64, 64
 WKV_SHAPES = {"serving prefill": (4, 32), "decode": (4, 1),
               "long prefill": (1, 4096)}
+
+#: phase c's attention shapes: label -> (B, T, Hq, Hkv, D, Dv, window,
+#: scale or None for 1 / sqrt(D), backward too): llama3.2-1b's serving
+#: prefill (phase d), gemma3-12b's local layers at a 4 096-token prefill
+#: (window 1 024: a tile's keys span several of its tiles), DeepSeek-V3's
+#: MLA (128 heads, Dk 192 / Dv 128, its scale), phase o's microbatch (4 x
+#: 128 tokens, forward and backward), and the prefill_32k length
+ATTN_SHAPES = {
+    "llama serving prefill": (4, 32, 32, 8, 64, 64, None, None, True),
+    "gemma3 windowed": (1, 4096, 16, 8, 256, 256, 1024, None, True),
+    "deepseek MLA": (4, 32, 128, 128, 192, 128, None, 192 ** -0.5, True),
+    "train microbatch": (4, 128, 32, 8, 64, 64, None, None, True),
+    "llama prefill 32k": (1, 32768, 32, 8, 64, 64, None, None, False),
+}
+#: the shapes whose numbers stand in the JSON line's rows
+ATTN_ROW, ATTN_BWD_ROW = "llama prefill 32k", "train microbatch"
+#: the new phase: llama3.2-1b prefilled at the prefill_32k length, and the
+#: positions whose logits are held against ``model_fwd``'s
+LONG_PREFILL, LONG_TAIL = 32768, 32
+#: the phase's wall-time budget, seconds
+LONG_PREFILL_BUDGET = 60.0
 
 #: phase o: llama3.2-1b trained at its published widths and depth (bf16),
 #: on the launcher's default stream and the loop of the coded-training
@@ -897,7 +940,283 @@ def phase_c(dev, deepseek_s: int) -> dict:
     wkv6_extra = wkv6_rows(dev, report)
     rows["wkv6"].update(wkv6_extra)
     rows["wkv6"].update(wkv6_bwd_rows(dev, report))
+    attn = attention_rows(dev, report)
+    rows["attention"]["shapes"] = attn["shapes"]
+    rows["attention_bwd"]["shapes"] = attn["backward"]
     return rows
+
+
+def _attn_inputs(dev, B, T, Hq, Hkv, D, Dv, dt, seed=0):
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+    return n(B, T, Hq, D), n(B, T, Hkv, D), n(B, T, Hkv, Dv)
+
+
+def _attn_pairs(B, T, window) -> int:
+    from repro_torch.kernels.plan import attention_masked_pairs
+    return B * attention_masked_pairs(T, T, True, window)
+
+
+def _attn_bound(B, T, Hq, Hkv, D, Dv, window, esz, backward=False):
+    """Least time of the attention at a shape: the exact masked pairs'
+    operations -- the forward's two products, 2 (D + Dv) a pair; the
+    backward's four, 2 (2 D + 2 Dv) -- at the bf16 tensor cores' 989.4
+    TFLOP/s (float32 inputs at the FP32 pipe's 67), against q, k, v, o
+    (and for the backward lse, do read and dq, dk, dv written) once each
+    at 3.35 TB/s."""
+    pairs = Hq * _attn_pairs(B, T, window)
+    ops = 2.0 * pairs * ((2 * D + 2 * Dv) if backward else (D + Dv))
+    rate = BF16_FLOP_PER_S if esz == 2 else F32_FLOP_PER_S
+    q, kv, o = B * T * Hq * D, B * T * Hkv * (D + Dv), B * T * Hq * Dv
+    nbytes = esz * (q + kv + o)
+    if backward:
+        nbytes += esz * (o + q + kv) + 4 * B * Hq * T
+    return bound(nbytes, [ops / rate])
+
+
+def _sdpa(q, k, v, window, scale, grad=False):
+    """The library's same work: ``scaled_dot_product_attention`` on (B, H,
+    T, D) views, GQA by ``enable_gqa``, causal, a boolean mask for the
+    window (timed beside the kernel, never called by the port).  Returns
+    the call and its (B, H, T, D) inputs (leaves that require grad when
+    ``grad``)."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(grad)
+                  for t in (q, k, v))
+    kw = dict(enable_gqa=True, scale=scale)
+    if window is None:
+        kw["is_causal"] = True
+    else:
+        i = torch.arange(q.shape[1], device=q.device)
+        kw["attn_mask"] = (i[None, :] <= i[:, None]) & \
+            (i[None, :] > i[:, None] - window)
+    return (lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)), \
+        (qt, kt, vt)
+
+
+#: phase c's attention edge shapes, float32 and bf16, forward and backward
+#: against the plain versions: (B, Tq, Tk, Hq, Hkv, D, Dv, causal, window,
+#: q_offset, kv_valid): G = 6, 64 (one head position a tile) and 128 (two
+#: head chunks), Tq != Tk non-causal with Dv > D, a q_offset with a (B,)
+#: kv_valid (one row seeing few keys), a ragged windowed T with Dv < D,
+#: head sizes below their compiled width (the smoke configs' 16, their
+#: MLA's 24 / 16, 192 / 128's padding to 192), one key
+ATTN_EDGES = ((2, 40, 40, 4, 2, 16, 16, True, None, 0, None),
+              (2, 33, 33, 4, 4, 24, 16, True, None, 0, None),
+              (2, 37, 37, 6, 1, 128, 128, True, None, 0, None),
+              (1, 33, 33, 64, 1, 64, 64, True, None, 0, None),
+              (1, 20, 20, 128, 1, 64, 64, True, None, 0, None),
+              (1, 50, 83, 4, 2, 64, 256, False, None, 0, None),
+              (2, 19, 70, 16, 1, 64, 64, True, None, 51, (70, 3)),
+              (1, 200, 200, 2, 1, 256, 64, True, 33, 0, None),
+              (3, 64, 64, 8, 8, 192, 192, True, 7, 0, None),
+              (2, 45, 45, 4, 4, 128, 192, False, 9, 0, None),
+              (1, 9, 1, 2, 1, 64, 64, False, None, 0, None))
+
+
+def attention_edge_sweep(dev) -> None:
+    """The attention kernels at ATTN_EDGES in both types against the plain
+    versions, at attention_rows' tolerances; every output finite."""
+    import torch
+    from repro_torch.kernels import attention as ka, ref
+    worst = 0.0
+    for (B, Tq, Tk, Hq, Hkv, D, Dv, causal, window, q_off, kv) in ATTN_EDGES:
+        for dt in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=dev).manual_seed(Tq + Tk + D)
+
+            def n(*shape):
+                return torch.randn(shape, generator=gen, device=dev).to(dt)
+            q, k, v = n(B, Tq, Hq, D), n(B, Tk, Hkv, D), n(B, Tk, Hkv, Dv)
+            do = n(B, Tq, Hq, Dv)
+            kvt = None if kv is None else torch.tensor(
+                kv, dtype=torch.int32, device=dev)
+            sc = D ** -0.5
+            out, lse = ka.attention_cuda(q, k, v, kvt, causal, window, q_off,
+                                         sc)
+            grads = ka.attention_bwd_cuda(q, k, v, out, lse, do, kvt, causal,
+                                          window, q_off, sc)
+            kw = dict(causal=causal, window=window, q_offset=q_off,
+                      kv_valid=kvt, scale=sc)
+            want, _ = ref.attention_ref(q, k, v, **kw)
+            want_g = ref.attention_bwd_ref(q, k, v, out, lse, do, **kw)
+            torch.cuda.synchronize()
+            f32 = dt == torch.float32
+            tag = (f"attention edge B {B} Tq {Tq} Tk {Tk} Hq {Hq} Hkv {Hkv} "
+                   f"D {D} Dv {Dv} causal {causal} window {window} "
+                   f"q_offset {q_off} kv_valid {kv} {dt}")
+            for nm, g, w, step in (
+                    [("out", out, want, 1e-5 if f32 else 2.0 ** -8)]
+                    + [(nm, g, w, 1e-4 if f32 else 2.0 ** -7) for nm, g, w
+                       in zip(("dq", "dk", "dv"), grads, want_g)]):
+                e = max_err(g, w)
+                t = step * (1 + float(w.float().abs().max()))
+                if e > t or not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"{tag} {nm}: {e} > {t}")
+                worst = max(worst, e / t)
+    print(f"[c] attention: {len(ATTN_EDGES)} edge shapes x 2 types, forward "
+          f"and backward, agree with the plain versions (largest err / tol "
+          f"{worst:.3g})", flush=True)
+
+
+def attention_rows(dev, report) -> dict:
+    """The attention kernels against their plain versions
+    (``ref.attention_ref`` / ``ref.attention_bwd_ref`` over the
+    reference's 512 blocks) at ATTN_SHAPES: the forward in bf16 (the path)
+    and float32, the backward where the shape has one, each timed single,
+    queued and from a CUDA graph beside the library's same work; windowed
+    rows finite; 16 forward calls bit-equal and 16 backward calls
+    bit-equal.  Returns the per-shape numbers for the JSON line's rows.
+
+    Tolerances, relative to 1 + max |plain|: the forward in float32 1e-5
+    (one online softmax in float32, sums in another order and other
+    tiles); in bf16 2^-8 (both round a float32 result to bf16); the
+    gradients in float32 1e-4 (four products and the recomputed P, sums
+    over up to T terms in another order), in bf16 2^-7 (a bf16 step at the
+    largest entry)."""
+    import torch
+    from repro_torch.kernels import attention as ka, ref
+    from repro_torch.kernels.plan import attention_plan
+    fwd_rows, bwd_rows = {}, {}
+    for label, (B, T, Hq, Hkv, D, Dv, window, scale, bwd) in \
+            ATTN_SHAPES.items():
+        sc = D ** -0.5 if scale is None else scale
+        p = attention_plan(D, Dv, Hq // Hkv, 2)
+        print(f"[c] plan attention {label} B {B} T {T} Hq {Hq} Hkv {Hkv} D "
+              f"{D} Dv {Dv}{f' window {window}' if window else ''}: width "
+              f"{p.width}, {p.gt} heads x {p.bq} positions a tile, {p.bk} "
+              f"keys a step, grid {p.grid(B, T, Hkv, Hq // Hkv)}, "
+              f"{p.smem_bytes} B shared, {p.blocks_per_sm} an SM; dQ "
+              f"{p.dq_smem} B, "
+              f"{p.dq_blocks_per_sm} an SM; dK / dV {p.bn} keys a block, "
+              f"grid {p.dkdv_grid(B, T, Hkv)}, {p.dkdv_smem} B, "
+              f"{p.dkdv_blocks_per_sm} an SM", flush=True)
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt).split(".")[-1]
+            tag = f"attention {label} {name}"
+            q, k, v = _attn_inputs(dev, B, T, Hq, Hkv, D, Dv, dt)
+
+            def call():
+                return ka.attention_cuda(q, k, v, None, True, window, 0, sc)
+
+            def plain():
+                return ref.attention_ref(q, k, v, window=window, scale=sc)
+            out, lse = call()
+            plain_ms, (want, want_lse) = time_once(plain)
+            top = 1 + float(want.float().abs().max())
+            tol = (2.0 ** -8 if dt == torch.bfloat16 else 1e-5) * top
+            err = max_err(out, want)
+            lse_err = max_err(lse, want_lse)
+            finite = bool(torch.isfinite(out).all())
+            if err > tol or lse_err > 1e-4 or not finite:
+                raise AssertionError(f"{tag}: kernel disagrees with its "
+                                     f"plain version (out {err} > {tol}, "
+                                     f"lse {lse_err}, finite {finite})")
+            nums = dict(max_abs_err=err, tol=tol, lse_err=lse_err,
+                        plain_ms=plain_ms)
+            if dt == torch.bfloat16:
+                if label == ATTN_ROW:
+                    repeat_equal(f"{tag} out", out, lambda: call()[0])
+                ms = time_ms(call, 10)
+                q_ms = time_queued_ms(call, 10)
+                g_ms = time_graph_ms(call, 5)
+                lib, _ = _sdpa(q, k, v, window, sc)
+                lib_ms = time_ms(lib, 10)
+                lib_err = max_err(lib().transpose(1, 2), want)
+                bnd = _attn_bound(B, T, Hq, Hkv, D, Dv, window, 2)
+                nums.update(ms=ms, queued_ms=q_ms, graph_ms=g_ms,
+                            library_ms=lib_ms, bound_ms=bnd[0],
+                            bound_by=bnd[1])
+                print(f"[c] {tag}: max_abs_err={err:.3e} (tol {tol:.3e}), "
+                      f"lse {lse_err:.3e}, finite; kernel {ms:.4f} ms "
+                      f"single, {q_ms:.4f} queued, {g_ms:.4f} from a graph; "
+                      f"plain {plain_ms:.2f} ms; library {lib_ms:.4f} ms "
+                      f"(its error {lib_err:.3e}); bound {bnd[0]:.4f} ms "
+                      f"({bnd[1]}), graph / bound {g_ms / bnd[0]:.2f}, "
+                      f"graph / library {g_ms / lib_ms:.2f}", flush=True)
+                if label == ATTN_ROW:
+                    report("attention", "src/repro_torch/csrc/attention.cu",
+                           "src/repro/models/attention.py:72", err, tol, ms,
+                           plain_ms, lib_ms, bnd, queued_ms=q_ms,
+                           graph_ms=g_ms)
+            else:
+                print(f"[c] {tag}: max_abs_err={err:.3e} (tol {tol:.3e}), "
+                      f"lse {lse_err:.3e}, finite; plain {plain_ms:.2f} ms",
+                      flush=True)
+            fwd_rows[f"{label} {name}".replace(" ", "_")] = nums
+            if bwd:
+                bwd_rows[f"{label} {name}".replace(" ", "_")] = \
+                    _attention_bwd_row(dev, report, tag, label, q, k, v,
+                                       out, lse, window, sc, dt)
+            del q, k, v, out, lse, want, want_lse
+            torch.cuda.empty_cache()
+    attention_edge_sweep(dev)
+    return {"shapes": fwd_rows, "backward": bwd_rows}
+
+
+def _attention_bwd_row(dev, report, tag, label, q, k, v, out, lse, window,
+                       sc, dt) -> dict:
+    """The backward kernels at one shape against ``ref.attention_bwd_ref``
+    on the same forward output, log-sum-exp and a random cotangent."""
+    import torch
+    from repro_torch.kernels import attention as ka, ref
+    B, T, Hq, D = q.shape
+    Hkv, Dv = v.shape[2], v.shape[3]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    do = torch.randn(out.shape, generator=gen, device=dev).to(dt)
+
+    def call():
+        return ka.attention_bwd_cuda(q, k, v, out, lse, do, None, True,
+                                     window, 0, sc)
+    got = call()
+    plain_ms, want = time_once(lambda: ref.attention_bwd_ref(
+        q, k, v, out, lse, do, window=window, scale=sc))
+    step = 2.0 ** -7 if dt == torch.bfloat16 else 1e-4
+    errs = []
+    for nm, g, w in zip(("dq", "dk", "dv"), got, want):
+        e, t = max_err(g, w), step * (1 + float(w.float().abs().max()))
+        if e > t or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{tag} backward {nm}: {e} > {t}")
+        errs.append((nm, e, t))
+    name = str(dt).split(".")[-1]
+    nums = dict(errors={nm: e for nm, e, _ in errs}, plain_ms=plain_ms)
+    if dt == torch.bfloat16:
+        repeat_equal(f"{tag} backward dk", got[1], lambda: call()[1])
+        ms = time_ms(call, 10)
+        q_ms = time_queued_ms(call, 10)
+        g_ms = time_graph_ms(call, 5)
+        # the library's same work: SDPA's backward through autograd on
+        # the same inputs and cotangent (its forward timed apart)
+        lib, leaves = _sdpa(q, k, v, window, sc, grad=True)
+        o_lib = lib()
+        do_t = do.transpose(1, 2)
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            o_lib, leaves, do_t, retain_graph=True), 10)
+        bnd = _attn_bound(B, T, Hq, Hkv, D, Dv, window, 2, backward=True)
+        nums.update(ms=ms, queued_ms=q_ms, graph_ms=g_ms, library_ms=lib_ms,
+                    bound_ms=bnd[0], bound_by=bnd[1])
+        print(f"[c] {tag} backward: "
+              + ", ".join(f"{nm} {e:.3e} (tol {t:.3e})" for nm, e, t in errs)
+              + f"; kernels {ms:.4f} ms single, {q_ms:.4f} queued, "
+              f"{g_ms:.4f} from a graph; plain {plain_ms:.2f} ms; library "
+              f"backward {lib_ms:.4f} ms; bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}), graph / bound {g_ms / bnd[0]:.2f}", flush=True)
+        if label == ATTN_BWD_ROW:
+            e, t = max(((e, t) for _, e, t in errs),
+                       key=lambda x: x[0] / x[1])
+            report("attention_bwd", "src/repro_torch/csrc/attention_bwd.cu",
+                   "src/repro/models/attention.py:72", e, t, ms, plain_ms,
+                   lib_ms, bnd, queued_ms=q_ms, graph_ms=g_ms)
+        del leaves, o_lib
+    else:
+        print(f"[c] {tag} backward: "
+              + ", ".join(f"{nm} {e:.3e} (tol {t:.3e})" for nm, e, t in errs)
+              + f"; plain {plain_ms:.2f} ms", flush=True)
+    del got, want, do
+    return nums
 
 
 class _SynthHead:
@@ -2994,6 +3313,40 @@ def _decode_gate(tag: str, cfg, params, dev) -> None:
     del full, inc, caches, enc
 
 
+def _long_prefill(tag: str, cfg, params, dev, T: int) -> None:
+    """One prefill of 1 x T tokens, its logits finite, and the full
+    forward over the same tokens: every logit finite, the last position
+    within phase j's gate of the prefill's."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import model_fwd, prefill
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, size=(1, T))).to(dev)
+    with torch.inference_mode():
+        caches = serve.zero_caches(cfg, 1, T + 8, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, caches = prefill(params, {"tokens": toks}, caches, cfg=cfg)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        del caches
+        full = model_fwd(params, {"tokens": toks}, cfg=cfg)["logits"]
+        finite = bool(torch.isfinite(full).all()
+                      and torch.isfinite(last).all())
+        err = max_err(last[:, -1], full[:, -1])
+        top = float(full[:, -1].float().abs().max())
+    tol = RWKV_LOGIT_TOL * (1 + top)
+    print(f"[n] {tag}: prefill 1 x {T} tokens {t_pre * 1e3:.1f} ms "
+          f"({T / t_pre:.1f} tok/s); the full forward's {full.numel()} "
+          f"logits finite {finite}; last position vs the prefill's "
+          f"{err:.4e} (tol {tol:.4e})", flush=True)
+    if not finite or err > tol:
+        raise AssertionError(f"phase n {tag}: the {T}-token prefill has "
+                             f"non-finite logits or misses the full "
+                             f"forward ({err} > {tol})")
+    del full, last
+
+
 def _frontend_forward(tag: str, cfg, params, dev) -> None:
     """``model_fwd`` with the stub features: DeepSeek's MTP head, a vision
     model's patches (batch 1), the encoder-decoder's frames; finite
@@ -3084,6 +3437,8 @@ def phase_n(dev, ds_seed: int) -> None:
         _decode_gate(cfg.name, cfg, params, dev)
         if cfg.moe is not None:
             _moe_repeat_gate(cfg.name, cfg, params, dev)
+        if arch in MIXER_LONG:
+            _long_prefill(cfg.name, cfg, params, dev, MIXER_LONG[arch])
         if cfg.mamba is not None:
             _mamba_times(cfg.name, cfg, params, dev)
         B, P, G = MIXER_SERVE
@@ -3146,6 +3501,88 @@ def _moe_repeat_gate(tag: str, cfg, params, dev) -> None:
         raise AssertionError(f"phase n {tag}: the MoE forward is not "
                              f"repeatable")
     del a, b
+
+
+def phase_s(dev) -> None:
+    """llama3.2-1b prefilled at its published widths and depth, 1 x 32 768
+    tokens (the prefill_32k length), through ``prefill``, twice (the
+    first call meets a cold allocator): tok/s and peak GiB of the second,
+    the ``attention`` launches of a prefill (one a layer, 16).  Its
+    logits at the last LONG_TAIL positions (a second prefill keeping the
+    layers' states: the last one through the final norm and the head) are
+    gated finite and within phase j's gate of ``model_fwd``'s over the same
+    tokens, and its last position against the prefill's own."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as ly
+    from repro_torch.models import model_fwd, prefill
+    from repro_torch.models.lm import _head
+    fresh_card(dev, "s")
+    t_phase = time.perf_counter()
+    cfg, params = serve.build_model(ARCH, smoke=False, seed=0, device=dev)
+    T = LONG_PREFILL
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, size=(1, T))).to(dev)
+    with torch.inference_mode():
+        caches = serve.zero_caches(cfg, 1, T + 8, device=dev)
+        kv_gib = sum(t.numel() * t.element_size()
+                     for t in _leaves(caches)) / 2**30
+        times = []
+        for _ in range(2):          # the first call from a cold allocator
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            n0 = kernels.launch_counts()["attention"]
+            t0 = time.perf_counter()
+            last, caches = prefill(params, {"tokens": toks}, caches,
+                                   cfg=cfg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            n_attn = kernels.launch_counts()["attention"] - n0
+        t_pre = times[-1]
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        print(f"[s] {cfg.name}: d_model {cfg.d_model}, {cfg.n_layers} "
+              f"layers (not cut), {cfg.dtype}; prefill 1 x {T} tokens: "
+              f"{t_pre * 1e3:.1f} ms (the first call {times[0] * 1e3:.1f}), "
+              f"{T / t_pre:.1f} tok/s, peak {peak:.2f} GiB (the KV cache "
+              f"{kv_gib:.2f} GiB); attention launches {n_attn} (one a "
+              f"layer: {cfg.n_layers})", flush=True)
+        if n_attn != cfg.n_layers:
+            raise AssertionError(f"phase s: {n_attn} attention launches, "
+                                 f"expected {cfg.n_layers}")
+        _, _, hiddens = prefill(params, {"tokens": toks}, caches, cfg=cfg,
+                                collect_layers=True)
+        h = ly.rms_norm(hiddens[-1][:, -LONG_TAIL:], params["final_norm"],
+                        cfg.norm_eps)
+        tail = _head(params, h, cfg).float()
+        del hiddens, caches, h
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        full = model_fwd(params, {"tokens": toks}, cfg=cfg)["logits"]
+        full = full[:, -LONG_TAIL:].float().clone()
+        torch.cuda.synchronize()
+        t_full = time.perf_counter() - t0
+    err = max_err(tail, full)
+    last_err = max_err(last[:, -1].float(), full[:, -1])
+    top = float(full.abs().max())
+    tol = RWKV_LOGIT_TOL * (1 + top)
+    finite = bool(torch.isfinite(tail).all() and torch.isfinite(full).all()
+                  and torch.isfinite(last).all())
+    agree = float((tail.argmax(-1) == full.argmax(-1)).float().mean())
+    print(f"[s] logits at the last {LONG_TAIL} positions vs model_fwd over "
+          f"the same {T} tokens ({t_full:.2f} s): max |dlogit| {err:.4e}, "
+          f"last position {last_err:.4e} (tol {tol:.4e}, max |logit| "
+          f"{top:.4f}), finite {finite}, argmax agreement {agree}",
+          flush=True)
+    if not finite or err > tol or last_err > tol:
+        raise AssertionError(f"phase s: the 32k prefill's logits miss "
+                             f"model_fwd's ({err}, {last_err} > {tol})")
+    del params, full, tail, last
+    serve._MODEL_CACHE.clear()
+    fresh_card(dev, "s")
+    t = time.perf_counter() - t_phase
+    print(f"[s] phase s {t:.1f} s (budget {LONG_PREFILL_BUDGET:.0f} s)",
+          flush=True)
 
 
 def _ckpt_bytes(path) -> int:
@@ -4225,6 +4662,7 @@ def main() -> int:
     phase_l(dev)
     phase_m(dev)
     phase_n(dev, ds_seed)
+    phase_s(dev)
     grads = phase_o(dev)
     # row 5g's group gradients wait on the host while phase p trains
     grads["trees"] = [_tree.map(lambda t: t.cpu(), t)
@@ -4257,7 +4695,7 @@ def main() -> int:
             "deepseek_chunk", "launch_floor",
             "serving_prefill_bfloat16", "serving_prefill_float32",
             "decode_bfloat16", "decode_float32", "long_prefill_float32",
-            "train_bfloat16", "backward")
+            "train_bfloat16", "backward", "shapes")
     print(json.dumps({"kernels": [{k: rows[n][k] for k in keys
                                    if k in rows[n]}
                                   for n in ("matmul", "coded_matvec",
@@ -4266,7 +4704,8 @@ def main() -> int:
                                             "parity_contract",
                                             "parity_contract_wide",
                                             "gen_parity_matvec", "wkv6",
-                                            "wkv6_bwd")]}))
+                                            "wkv6_bwd", "attention",
+                                            "attention_bwd")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

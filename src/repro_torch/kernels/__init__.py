@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the port (coded serving, the static
 executor, the streaming verify, the RWKV-6 WKV recurrence and its
-backward), their plain-torch twins (:mod:`.ref`) and the padding/dispatch
+backward, the blockwise attention and its backward), their plain-torch twins (:mod:`.ref`) and the padding/dispatch
 layer (:mod:`.ops`).
 
 Each wrapper counts its launches in a plain integer;
@@ -9,7 +9,7 @@ a run can show that its path really went through the kernels.
 """
 from typing import Dict
 
-from . import coded_matvec, matmul, mds_encode, wkv6
+from . import attention, coded_matvec, matmul, mds_encode, wkv6
 
 __all__ = ["launch_counts", "reset_launch_counts"]
 
@@ -23,7 +23,9 @@ def launch_counts() -> Dict[str, int]:
             "parity_contract": mds_encode.CONTRACT_LAUNCHES,
             "parity_contract_wide": mds_encode.WIDE_CONTRACT_LAUNCHES,
             "wkv6": wkv6.WKV6_LAUNCHES,
-            "wkv6_bwd": wkv6.WKV6_BWD_LAUNCHES}
+            "wkv6_bwd": wkv6.WKV6_BWD_LAUNCHES,
+            "attention": attention.LAUNCHES,
+            "attention_bwd": attention.BWD_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
@@ -36,3 +38,5 @@ def reset_launch_counts() -> None:
     mds_encode.WIDE_CONTRACT_LAUNCHES = 0
     wkv6.WKV6_LAUNCHES = 0
     wkv6.WKV6_BWD_LAUNCHES = 0
+    attention.LAUNCHES = 0
+    attention.BWD_LAUNCHES = 0

@@ -6,7 +6,7 @@ import ctypes
 import torch
 
 __all__ = ["check_cuda", "stream_ptr", "raise_on_error", "sm_count",
-           "P", "I", "U32", "F32"]
+           "fake_only", "P", "I", "U32", "F32"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -53,3 +53,12 @@ def sm_count(device: torch.device) -> int:
     if idx not in _SMS:
         _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
     return _SMS[idx]
+
+
+def fake_only(name: str, t: torch.Tensor) -> None:
+    """An operator's shape-only implementation runs for fake tensors alone
+    (the dry-run's traces): a meta tensor has no device to run on."""
+    from torch._subclasses.fake_tensor import is_fake
+    if not is_fake(t):
+        raise ValueError(f"{name}: expected a tensor on a CUDA device or "
+                         f"the CPU, got {t.device}")

@@ -3,8 +3,10 @@
 grid, and how far K is split, or the encode's skinny float32 stream), the
 skinny products of ``csrc/coded_matvec.cu`` (route, grid, rows per block,
 X slab or copy, K slabs), the counter-derived parity contraction of
-``csrc/mds_encode.cu`` (route, grid, column slabs) and the
-WKV recurrence of ``csrc/wkv6.cu`` (route, chunk, grid).
+``csrc/mds_encode.cu`` (route, grid, column slabs), the
+WKV recurrence of ``csrc/wkv6.cu`` (route, chunk, grid) and the blockwise
+attention of ``csrc/attention.cu`` / ``csrc/attention_bwd.cu`` (tiles,
+shared bytes, residency).
 
 Plain Python, so the CPU tests can check a plan at the path's shapes; the
 C entry points take the plan's numbers as arguments, check them and derive
@@ -32,7 +34,9 @@ __all__ = ["TileConfig", "GemmPlan", "CONFIGS", "gemm_plan", "StreamPlan",
            "encode_plan", "MatvecPlan", "matvec_plan", "matvec_launches",
            "ContractPlan", "contract_plan", "contract_launches",
            "Wkv6Plan", "wkv6_plan", "Wkv6BwdPlan", "wkv6_bwd_plan",
-           "wkv6_ops", "wkv6_bwd_ops"]
+           "wkv6_ops", "wkv6_bwd_ops", "AttentionPlan", "attention_plan",
+           "attention_block_range", "attention_pairs",
+           "attention_masked_pairs", "attention_flops"]
 
 #: no slab shorter than this many K elements (the second pass and the
 #: pipeline's fill cost more than a shorter slab saves)
@@ -587,3 +591,156 @@ def wkv6_bwd_ops(T: int, K: int, V: int, BH: int, esz: int,
           + 2 * chunk / K * exact + 2 * chunk / K * split)
     steps = BH * T * K * V
     return {"tf32": tc * steps, "fp32": 6 * steps}
+
+# -- attention (csrc/attention.cu, csrc/attention_bwd.cu) ---------------------
+#
+# A tile is ATTN_ROWS query rows of one kv head's group: ``gt`` of its G
+# query heads x ``bq`` query positions, so K and V are read once for the
+# group.  The forward and dQ blocks (one per tile) step through the keys
+# the tile's masks leave, ``bk`` a step; a dK / dV block holds ``bn`` keys
+# and steps through the tiles that see them.  Every operand tile is float32
+# in shared memory, ``width`` + 4 floats a row; 256 threads, each a 4-row
+# (dK / dV: bn / 16-row) strip of 16-column-strided entries.  Head sizes D
+# (queries and keys) and Dv (values) are multiples of 4 up to 256, any
+# pair; they run at the compiled ``width``, the smallest of ATTN_WIDTHS
+# that holds both (a tile's columns past its head size are zero).  The
+# rows of K, V, Q and dO are read four elements at a time.
+
+ATTN_WIDTHS = (32, 64, 128, 192, 256)
+ATTN_ROWS = 64
+ATTN_THREADS = 256
+#: shared memory of one SM, and the most one block can take
+ATTN_SM_SMEM = 233472
+ATTN_BLOCK_SMEM = 232448
+#: the residency the kernels' registers are built for: the forward and dQ
+#: kernels ``__launch_bounds__(256, 2)`` (at most 128 registers a thread),
+#: the dK / dV kernel, whose two accumulators take twice as many, (256, 1)
+ATTN_MAX_BLOCKS = 2
+ATTN_DKDV_MAX_BLOCKS = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    width: int              # the compiled head width (ATTN_WIDTHS)
+    gt: int                 # query heads of the group a tile
+    bq: int                 # query positions a tile (gt * bq <= ATTN_ROWS)
+    bk: int                 # keys a step of the forward and dQ blocks
+    bn: int                 # keys a dK / dV block
+    threads: int
+    smem_bytes: int         # the forward block's
+    dq_smem: int
+    dkdv_smem: int
+    blocks_per_sm: int      # the forward's residency
+    dq_blocks_per_sm: int
+    dkdv_blocks_per_sm: int
+
+    def grid(self, B: int, Tq: int, Hkv: int, G: int) -> Tuple[int, int, int]:
+        """The forward's and dQ's grid: (query tiles, kv heads x head
+        chunks, batch)."""
+        return (_cdiv(Tq, self.bq), Hkv * _cdiv(G, self.gt), B)
+
+    def dkdv_grid(self, B: int, Tk: int, Hkv: int) -> Tuple[int, int, int]:
+        return (_cdiv(Tk, self.bn), Hkv, B)
+
+
+def _attn_resident(smem: int, cap: int = ATTN_MAX_BLOCKS) -> int:
+    """Blocks an SM holds: its shared memory (1 KB reserved a block) and
+    the kernel's registers (``cap``)."""
+    return min(cap, ATTN_SM_SMEM // (smem + 1024))
+
+
+@functools.lru_cache(maxsize=256)
+def attention_plan(D: int, Dv: int, G: int, esz: int = 2) -> AttentionPlan:
+    """The attention kernels' launch plan for head sizes D (queries, keys)
+    and Dv (values), G query heads a kv head, inputs of ``esz`` bytes
+    (float32 4, bfloat16 2: every tile is float32 in shared memory, so the
+    type sets no tile)."""
+    if not all(0 < d <= ATTN_WIDTHS[-1] and d % 4 == 0 for d in (D, Dv)) \
+            or G < 1 or esz not in (2, 4):
+        raise ValueError(f"attention_plan: head sizes D={D} Dv={Dv} must be "
+                         f"multiples of 4 up to {ATTN_WIDTHS[-1]}, G={G} at "
+                         f"least 1, esz={esz} 2 or 4")
+    w = next(x for x in ATTN_WIDTHS if x >= max(D, Dv))
+    gt = min(G, ATTN_ROWS)
+    bq = ATTN_ROWS // gt
+    bk = 64 if w <= 64 else 32
+    bn = 64 if w <= 128 else 32
+    r, ld = ATTN_ROWS, w + 4
+    fwd = 4 * (r * ld + 2 * bk * ld + r * (bk + 4))
+    dq = 4 * (2 * r * ld + 2 * bk * ld + r * (bk + 4) + 2 * r)
+    dkdv = 4 * (2 * bn * ld + 2 * r * ld + 2 * bn * (r + 4) + 2 * r)
+    return AttentionPlan(w, gt, bq, bk, bn, ATTN_THREADS, fwd, dq, dkdv,
+                         _attn_resident(fwd), _attn_resident(dq),
+                         _attn_resident(dkdv, ATTN_DKDV_MAX_BLOCKS))
+
+
+def _visible(Tq: int, Tk: int, causal: bool, window: Optional[int],
+             q_offset: int, kv: int):
+    """(first, end) visible key of every query row, numpy int64 arrays."""
+    import numpy as np
+    p = q_offset + np.arange(Tq, dtype=np.int64)
+    end = np.full(Tq, min(Tk, kv), dtype=np.int64)
+    if causal:
+        end = np.minimum(end, p + 1)
+    first = np.zeros(Tq, dtype=np.int64)
+    if window is not None:
+        first = np.maximum(first, p - window + 1)
+    return first, end
+
+
+def attention_masked_pairs(Tq: int, Tk: int, causal: bool,
+                           window: Optional[int] = None, q_offset: int = 0,
+                           kv_valid=None) -> int:
+    """The (query, key) pairs a batch row's masks leave, summed over the
+    batch when ``kv_valid`` is a sequence (one count a row), else for one
+    row: the exact work, which the card's bound reads."""
+    import numpy as np
+    kvs = [Tk] if kv_valid is None else list(np.atleast_1d(kv_valid))
+    total = 0
+    for kv in kvs:
+        first, end = _visible(Tq, Tk, causal, window, q_offset, int(kv))
+        total += int(np.maximum(end - first, 0).sum())
+    return total
+
+
+def attention_block_range(i: int, bq: int, bk: int, nk: int, causal: bool,
+                          window: Optional[int], q_offset: int
+                          ) -> Tuple[int, int]:
+    """The reference's static key-block range of query block i (blocks of
+    bq queries and bk keys, nk key blocks): (j_lo, steps), its scan over
+    ``j_lo .. j_lo + steps``."""
+    j_hi = min(nk, (q_offset + (i + 1) * bq + bk - 1) // bk) if causal \
+        else nk
+    j_lo = max(0, (q_offset + i * bq - window) // bk) \
+        if window is not None else 0
+    return j_lo, max(j_hi - j_lo, 1)
+
+
+def attention_pairs(Tq: int, Tk: int, causal: bool,
+                    window: Optional[int] = None, q_offset: int = 0,
+                    block_q: int = 512, block_k: int = 512) -> int:
+    """The (query, key) pairs the reference's blockwise ``flash_attention``
+    visits for one batch row and head: each query block's whole key blocks
+    over its static range ``j_lo .. j_lo + max(j_hi - j_lo, 1)``, as its
+    compiled FLOPs count them."""
+    if Tq == 0 or Tk == 0:
+        return 0
+    bq, bk = min(block_q, Tq), min(block_k, Tk)
+    nk = _cdiv(Tk, bk)
+    return bq * bk * sum(
+        attention_block_range(i, bq, bk, nk, causal, window, q_offset)[1]
+        for i in range(_cdiv(Tq, bq)))
+
+
+def attention_flops(B: int, Tq: int, Tk: int, Hq: int, D: int, Dv: int,
+                    causal: bool, window: Optional[int], q_offset: int,
+                    block_q: int, block_k: int, backward: bool = False
+                    ) -> int:
+    """FLOPs of the attention over the pairs the reference's block range
+    visits (:func:`attention_pairs`): the forward's two products, 2 (D +
+    Dv) a pair, and the backward's four (dP = dO Vᵀ, dV = Pᵀ dO, dQ = dS K,
+    dK = dSᵀ Q), 2 (2 D + 2 Dv) a pair, as the reference's autodiff runs
+    them.  The FLOP formulas of the ``attention`` operators read this."""
+    pairs = B * Hq * attention_pairs(Tq, Tk, causal, window, q_offset,
+                                     block_q, block_k)
+    return 2 * pairs * ((2 * D + 2 * Dv) if backward else (D + Dv))

@@ -1,5 +1,6 @@
 """Plain-PyTorch versions of every kernel of the port (coded serving, the
-static executor, the streaming verify, the RWKV-6 WKV recurrence).
+static executor, the streaming verify, the RWKV-6 WKV recurrence, the
+blockwise attention and its backward).
 
 The CPU tests run these (a wrapper takes them only for CPU tensors) and
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.  They
@@ -13,15 +14,19 @@ arithmetic, so the rows are bit-identical to
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+
+from .plan import attention_block_range
 
 __all__ = ["matmul_ref", "coded_matvec_ref", "coded_matvec_batch_ref",
            "mds_encode_ref", "threefry2x32_ref", "counter_parity_rows_ref",
            "parity_contract_ref", "gen_parity_ref", "wkv6_chunk_ref",
            "wkv6_chunked_ref", "wkv6_subchunk_ref", "wkv6_seq_ref",
-           "wkv6_bwd_ref", "wkv6_bwd_chunked_ref"]
+           "wkv6_bwd_ref", "wkv6_bwd_chunked_ref", "attention_ref",
+           "attention_bwd_ref"]
 
 _M32 = 0xFFFFFFFF
 _TF_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -470,3 +475,176 @@ def wkv6_bwd_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     du = (rf * kf * vdo).sum(dim=(0, 2))
     return (dr.to(dtype), dk.to(dtype), dv.to(dtype), dw.to(dtype), du,
             dS_0)
+
+
+def _kv_limit(kv_valid, Tk: int, pad_k: int, device):
+    """The reference's ``kv_valid`` as a (B, 1, 1, 1, 1) or scalar int64
+    tensor (None when no key is masked by it): clamped to Tk when the keys
+    were padded to whole blocks, as the reference does."""
+    if pad_k:
+        kv_valid = torch.clamp(torch.as_tensor(
+            Tk if kv_valid is None else kv_valid, device=device), max=Tk)
+    if kv_valid is None:
+        return None
+    kv = torch.as_tensor(kv_valid, device=device).to(torch.int64)
+    return kv.reshape(-1, 1, 1, 1, 1) if kv.dim() else kv
+
+
+def _tile_mask(q_pos, k_pos, causal, window, kv):
+    """The reference's ``_attn_block`` mask, (bq, bk) or (B, 1, 1, bq, bk)
+    with a per-row ``kv`` limit."""
+    qp, kp = q_pos[:, None], k_pos[None, :]
+    mask = torch.ones((q_pos.numel(), k_pos.numel()), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    mask = mask[None, None, None]
+    if kv is not None:
+        mask = mask & (kp < kv)
+    return mask
+
+
+def _key_block(j: int, bk: int, n: int) -> slice:
+    """The keys ``jax.lax.dynamic_slice_in_dim(t, j * bk, bk)`` takes from
+    n padded keys: the start clamped so that the block lies inside them."""
+    start = min(j * bk, n - bk)
+    return slice(start, start + bk)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  q_offset: int = 0, kv_valid=None, block_q: int = 512,
+                  block_k: int = 512, scale: Optional[float] = None):
+    """Blockwise softmax attention, the port of the reference's
+    ``repro.models.attention.flash_attention`` line for line, and the plain
+    twin of ``csrc/attention.cu``.
+
+    q (B, Tq, Hq, D); k, v (B, Tk, Hkv, D / Dv), Hq a multiple of Hkv (GQA);
+    ``q_offset`` the absolute position of q[0]; ``kv_valid`` a scalar or
+    (B,) count of valid keys.  The query axis is cut into blocks of
+    ``block_q``; each block scans only the key blocks of ``block_k`` that
+    its causal / window masks leave a pair in, with a running max,
+    numerator and denominator in float32.  One difference: a row whose
+    running max is still -inf (every key seen so far masked) takes its
+    correction and its probabilities as 0, where the reference's
+    exp(-inf + inf) gives NaN rows under a window.  Returns (out (B, Tq, Hq,
+    Dv) in q's type, the rows' log-sum-exp (B, Hq, Tq) float32, -inf for a
+    row that sees no key)."""
+    B, Tq, Hq, D = q.shape
+    _, Tk, Hkv, Dv = v.shape
+    G = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qh = q.reshape(B, Tq, Hkv, G, D).permute(0, 2, 3, 1, 4).float()
+    kh = k.permute(0, 2, 1, 3).float()
+    vh = v.permute(0, 2, 1, 3).float()
+    bq, bk = min(block_q, Tq), min(block_k, Tk)
+    nq, nk = -(-Tq // bq), -(-Tk // bk)
+    pad_q, pad_k = nq * bq - Tq, nk * bk - Tk
+    if pad_q:
+        qh = torch.nn.functional.pad(qh, (0, 0, 0, pad_q))
+    if pad_k:
+        kh = torch.nn.functional.pad(kh, (0, 0, 0, pad_k))
+        vh = torch.nn.functional.pad(vh, (0, 0, 0, pad_k))
+    kv = _kv_limit(kv_valid, Tk, pad_k, q.device)
+    out_blocks, lse_blocks = [], []
+    for i in range(nq):
+        q_blk = qh[:, :, :, i * bq:(i + 1) * bq]
+        q_pos = q_offset + i * bq + torch.arange(bq, device=q.device)
+        j_lo, steps = attention_block_range(i, bq, bk, nk, causal, window,
+                                             q_offset)
+        m = torch.full((B, Hkv, G, bq), -math.inf, device=q.device)
+        num = torch.zeros((B, Hkv, G, bq, Dv), device=q.device)
+        den = torch.zeros((B, Hkv, G, bq), device=q.device)
+        for j in range(j_lo, j_lo + steps):
+            keys = _key_block(j, bk, kh.shape[2])
+            k_blk, v_blk = kh[:, :, keys], vh[:, :, keys]
+            k_pos = j * bk + torch.arange(bk, device=q.device)
+            s = torch.einsum("bhgqd,bhkd->bhgqk", q_blk, k_blk) * scale
+            s = torch.where(_tile_mask(q_pos, k_pos, causal, window, kv), s,
+                            -math.inf)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # a row with nothing seen yet: corr and p are 0, not NaN
+            m_use = torch.where(torch.isneginf(m_new), 0.0, m_new)
+            corr = torch.exp(m - m_use)
+            p = torch.exp(s - m_use[..., None])
+            num = num * corr[..., None] + torch.einsum(
+                "bhgqk,bhkd->bhgqd", p, v_blk)
+            den = den * corr + p.sum(dim=-1)
+            m = m_new
+        out_blocks.append(num / torch.clamp(den, min=1e-30)[..., None])
+        lse_blocks.append(torch.where(
+            den > 0, torch.where(torch.isneginf(m), 0.0, m)
+            + torch.log(torch.clamp(den, min=1e-30)), -math.inf))
+    out = torch.cat(out_blocks, dim=3)[:, :, :, :Tq]
+    lse = torch.cat(lse_blocks, dim=3)[:, :, :, :Tq]
+    return (out.permute(0, 3, 1, 2, 4).reshape(B, Tq, Hq, Dv).to(q.dtype),
+            lse.reshape(B, Hq, Tq).detach())
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                      *, causal: bool = True, window: Optional[int] = None,
+                      q_offset: int = 0, kv_valid=None, block_q: int = 512,
+                      block_k: int = 512, scale: Optional[float] = None):
+    """The gradient of :func:`attention_ref`, the plain twin of
+    ``csrc/attention_bwd.cu``, over the same block ranges in float32.
+
+    From the forward's output ``out`` and row log-sum-exp ``lse`` and the
+    output's cotangent ``do`` (B, Tq, Hq, Dv): D_i = Σ dO_i ⊙ O_i, then for
+    every visited (query, key) pair P = exp(s - lse) (0 where masked or
+    where the row sees no key), dV += Pᵀ dO, dS = P ⊙ (dO Vᵀ - D_i), dQ +=
+    scale dS K, dK += scale dSᵀ Q.  Returns (dq, dk, dv) in the input
+    types."""
+    B, Tq, Hq, D = q.shape
+    _, Tk, Hkv, Dv = v.shape
+    G = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+
+    def heads(t):
+        return t.reshape(B, Tq, Hkv, G, -1).permute(0, 2, 3, 1, 4).float()
+    qh, oh, doh = heads(q), heads(out), heads(do)
+    kh = k.permute(0, 2, 1, 3).float()
+    vh = v.permute(0, 2, 1, 3).float()
+    di = (doh * oh).sum(-1)                               # (B, Hkv, G, Tq)
+    lh = lse.reshape(B, Hkv, G, Tq).float()
+    bq, bk = min(block_q, Tq), min(block_k, Tk)
+    nq, nk = -(-Tq // bq), -(-Tk // bk)
+    pad_q, pad_k = nq * bq - Tq, nk * bk - Tk
+    pad = torch.nn.functional.pad
+    if pad_q:
+        qh, doh = pad(qh, (0, 0, 0, pad_q)), pad(doh, (0, 0, 0, pad_q))
+        di, lh = pad(di, (0, pad_q)), pad(lh, (0, pad_q), value=-math.inf)
+    if pad_k:
+        kh, vh = pad(kh, (0, 0, 0, pad_k)), pad(vh, (0, 0, 0, pad_k))
+    kv = _kv_limit(kv_valid, Tk, pad_k, q.device)
+    dq = torch.zeros_like(qh)
+    dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
+    for i in range(nq):
+        rows = slice(i * bq, (i + 1) * bq)
+        q_blk, do_blk = qh[:, :, :, rows], doh[:, :, :, rows]
+        l_blk, d_blk = lh[:, :, :, rows, None], di[:, :, :, rows, None]
+        live = ~torch.isneginf(l_blk)
+        l_use = torch.where(live, l_blk, 0.0)
+        q_pos = q_offset + i * bq + torch.arange(bq, device=q.device)
+        j_lo, steps = attention_block_range(i, bq, bk, nk, causal, window,
+                                             q_offset)
+        for j in range(j_lo, j_lo + steps):
+            keys = _key_block(j, bk, kh.shape[2])
+            k_blk, v_blk = kh[:, :, keys], vh[:, :, keys]
+            k_pos = j * bk + torch.arange(bk, device=q.device)
+            s = torch.einsum("bhgqd,bhkd->bhgqk", q_blk, k_blk) * scale
+            mask = _tile_mask(q_pos, k_pos, causal, window, kv) & live
+            p = torch.where(mask, torch.exp(s - l_use), 0.0)
+            dp = torch.einsum("bhgqd,bhkd->bhgqk", do_blk, v_blk)
+            ds = p * (dp - d_blk)
+            dq[:, :, :, rows] += torch.einsum("bhgqk,bhkd->bhgqd", ds,
+                                              k_blk) * scale
+            dk[:, :, keys] += torch.einsum("bhgqk,bhgqd->bhkd", ds,
+                                           q_blk) * scale
+            dv[:, :, keys] += torch.einsum("bhgqk,bhgqd->bhkd", p, do_blk)
+    dq = dq[:, :, :, :Tq].permute(0, 3, 1, 2, 4).reshape(B, Tq, Hq, D)
+    dk = dk[:, :, :Tk].permute(0, 2, 1, 3)
+    dv = dv[:, :, :Tk].permute(0, 2, 1, 3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

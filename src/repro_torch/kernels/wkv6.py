@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from ._launch import I, P, check_cuda, raise_on_error, stream_ptr
+from ._launch import I, P, check_cuda, fake_only, raise_on_error, stream_ptr
 from .plan import (WKV_BWD_V_MAX, WKV_K_MAX, wkv6_bwd_ops, wkv6_bwd_plan,
                    wkv6_ops, wkv6_plan)
 from .ref import wkv6_bwd_ref, wkv6_chunked_ref
@@ -196,15 +196,6 @@ def _heads(t: Optional[torch.Tensor], H: int):
                                             *t.shape[1:])
 
 
-def _fake_only(name: str, t: torch.Tensor) -> None:
-    """The shape-only implementations run for fake tensors alone (the
-    dry-run's traces): a meta tensor has no device to run on."""
-    from torch._subclasses.fake_tensor import is_fake
-    if not is_fake(t):
-        raise ValueError(f"{name}: expected a tensor on a CUDA device or "
-                         f"the CPU, got {t.device}")
-
-
 # The WKV and its backward as operators of their own: one entry
 # (``torch.ops.repro_torch.wkv6`` / ``wkv6_bwd``), an implementation per
 # device -- the kernels on CUDA tensors (launched or raising), the plain
@@ -237,7 +228,7 @@ def _(r, k, v, w, u, state, chunk):
 
 @wkv6_op.register_fake
 def _(r, k, v, w, u, state, chunk):
-    _fake_only("wkv6", r)
+    fake_only("wkv6", r)
     _check("wkv6", r, k, v, w, u, state)
     BH, T, K = r.shape
     V = v.shape[-1]
@@ -269,7 +260,7 @@ def _(r, k, v, w, u, state, do, dS_T):
 
 @wkv6_bwd_op.register_fake
 def _(r, k, v, w, u, state, do, dS_T):
-    _fake_only("wkv6_bwd", r)
+    fake_only("wkv6_bwd", r)
     _check("wkv6_bwd", r, k, v, w, u, state)
     BH, _, K = r.shape
     V = v.shape[-1]

@@ -3,12 +3,14 @@ sliding-window rings), MLA (DeepSeek-V3) and cross-attention (the
 encoder-decoder's decoder), RoPE, single-token decode over a KV cache.
 
 The reference's ``flash_attention`` is jnp, not Pallas: a blockwise
-online softmax that bounds XLA's compiled memory.  Here it is plain torch
-— the masked score matrix in float32, one softmax — which computes the
-same function; serving prompts are short, so the (T, T) scores are small.
-Layouts follow the reference: (B, T, H, D) activations, ``wq`` (d, Hq,
-Dh), ``wo`` (Hq, Dh, d).  Products promote their operands as ``jnp``'s
-do (:func:`.layers.einsum`).
+online softmax that keeps no (T, T) scores and visits only the key blocks
+its causal / window masks leave.  Here it is the ``attention`` operator
+(:mod:`repro_torch.kernels.attention`): the hand-written kernels
+``csrc/attention.cu`` and ``csrc/attention_bwd.cu`` on CUDA tensors, the
+plain blockwise port on CPU tensors, with the same bounded memory and
+masked work.  Layouts follow the reference: (B, T, H, D) activations,
+``wq`` (d, Hq, Dh), ``wo`` (Hq, Dh, d).  Products promote their operands
+as ``jnp``'s do (:func:`.layers.einsum`).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..kernels.attention import attention_op
 from .config import ArchConfig, MLAConfig
 from .layers import _normal, einsum
 
@@ -44,35 +47,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: int = 0,
                     kv_valid: Optional[torch.Tensor] = None,
+                    block_q: int = 512, block_k: int = 512,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Softmax attention with the reference's masks.
+    """Blockwise softmax attention with the reference's masks.
 
     q: (B, Tq, Hq, D); k, v: (B, Tk, Hkv, Dk/Dv).  Hq % Hkv == 0 (GQA).
     ``q_offset`` is the absolute position of q[0]; ``kv_valid`` masks a
-    padded KV cache (scalar or (B,)).  Returns (B, Tq, Hq, Dv)."""
-    B, Tq, Hq, D = q.shape
-    _, Tk, Hkv, Dv = v.shape
-    G = Hq // Hkv
+    padded KV cache (scalar or (B,)).  ``block_q`` / ``block_k`` are the
+    reference's blocks, which the plain version (CPU tensors) runs and the
+    FLOP count reads; the kernels tile by their plan.  A row that sees no
+    key is 0 (the reference's is NaN under a window).  Returns (B, Tq, Hq,
+    Dv), differentiable."""
+    B, D = q.shape[0], q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    qh = q.reshape(B, Tq, Hkv, G, D).permute(0, 2, 3, 1, 4).float()
-    kh = k.permute(0, 2, 1, 3).float()                       # (B, Hkv, Tk, D)
-    vh = v.permute(0, 2, 1, 3).float()
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qh, kh) * scale
-    qp = q_offset + torch.arange(Tq, device=q.device)[:, None]
-    kp = torch.arange(Tk, device=q.device)[None, :]
-    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kp <= qp
-    if window is not None:
-        mask &= kp > qp - window
-    full = mask[None, None, None]
     if kv_valid is not None:
-        kvv = torch.as_tensor(kv_valid, device=q.device).reshape(-1)
-        full = full & (kp[0] < kvv[:, None])[:, None, None, None, :]
-    s = s.masked_fill(~full, float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bhkd->bhgqd", p, vh)
-    return o.permute(0, 3, 1, 2, 4).reshape(B, Tq, Hq, Dv).to(q.dtype)
+        kv_valid = torch.as_tensor(kv_valid, device=q.device).to(
+            torch.int32).reshape(-1).expand(B).contiguous()
+    # mixed types (a bf16 decoder's queries against a float32 encoder's
+    # keys) meet in the promoted type, as the reference's products do
+    dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+    out, _ = attention_op(q.to(dt).contiguous(), k.to(dt).contiguous(),
+                          v.to(dt).contiguous(), kv_valid, causal, window,
+                          int(q_offset), float(scale), block_q, block_k)
+    return out.to(q.dtype)
 
 
 def _put(cache: torch.Tensor, idx: tuple, value: torch.Tensor) -> None:

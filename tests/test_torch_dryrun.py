@@ -11,6 +11,9 @@ process group, on the CPU: fake-world traces of one step.
   twice, functional and in-place;
 * ``run_cell`` for llama3.2-1b's ``decode_32k`` over 256 fake ranks:
   status, terms and memory, the JSON record saved; ``should_skip``;
+* ``run_cell`` for llama3.2-1b's ``prefill_32k`` over 256 fake ranks: a
+  rank's traced peak below one layer's dense (T, T) float32 scores on that
+  rank (the blockwise attention keeps none);
 * ``shard_params`` under ``FakeTensorMode`` reads no fake data pointer.
 """
 import json
@@ -115,6 +118,20 @@ def test_run_cell_decode_on_256_fake_ranks(tmp_path):
     assert saved == json.loads(json.dumps(rec))
     import torch.distributed as dist
     assert not dist.is_initialized()
+
+
+def test_run_cell_prefill_32k_keeps_no_score_tensor():
+    rec = dryrun.run_cell("llama3.2-1b", "prefill_32k", False,
+                          device="cpu", verbose=False)
+    assert rec["status"] == "ok" and rec["n_chips"] == 256
+    cfg = get_config("llama3.2-1b")
+    # a rank's batch rows (data 16 of 32) and every query head (8 kv
+    # heads do not divide the 16-way model dim: heads replicated)
+    b_local, T = 32 // 16, 32_768
+    dense_scores = b_local * cfg.n_heads * T * T * 4
+    ma = rec["memory_analysis"]
+    assert ma["argument_size_in_bytes"] < ma["peak_size_in_bytes"] \
+        < dense_scores, (ma, dense_scores)
 
 
 def test_should_skip_long_context_on_full_attention():
