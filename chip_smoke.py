@@ -59,12 +59,15 @@ exits non-zero):
      blockwise attention forward and backward (rows 7 / 7g) at
      llama3.2-1b's serving prefill, gemma3-12b's windowed 4 096-token
      prefill, DeepSeek-V3's MLA (Dk 192 / Dv 128), phase o's microbatch
-     and a 32 768-token prefill, in bf16 and float32 against the plain
-     versions (forward float32 1e-5, bf16 2^-8 x (1 + max |o|);
-     gradients float32 1e-4, bf16 2^-7 x (1 + max |grad|); windowed rows
-     finite), timed single, queued and from a graph beside
-     ``scaled_dot_product_attention`` (forward and backward), 16 calls
-     bit-equal, and at 11 edge shapes; then the
+     and a 32 768-token prefill, in bf16 (the forward on the tensor cores,
+     ``attention_mma``, also against its twin ``ref.attention_mma_ref``,
+     with the SIMT kernel timed beside it on the same inputs) and float32
+     (SIMT) against the plain versions (forward float32 1e-5, bf16 2^-8 x
+     (1 + max |o|), lse 1e-4; gradients float32 1e-4, bf16 2^-7 x (1 +
+     max |grad|); windowed rows finite), timed single, queued and from a
+     graph beside ``scaled_dot_product_attention`` (forward and
+     backward), 16 calls bit-equal, and at 17 edge shapes (Tk = 0 among
+     them); then the
      decode's two routes for a parity minor on a synthetic head plan
      whose unknowns are known: the float32 LU refined in float64 at s =
      110 500 parity rows (past the float64 minor's cap), and both routes
@@ -122,7 +125,8 @@ exits non-zero):
      to its uncoded twin's;
   s. llama3.2-1b prefilled at its published widths and depth at 1 x
      32 768 tokens (the prefill_32k length) through ``prefill``: tok/s,
-     peak GiB, the attention launches (16, one a layer); the logits at
+     peak GiB, the attention launches (16, one a layer, every one on the
+     tensor-core kernel); the logits at
      the last 32 positions finite and within phase j's gate of
      ``model_fwd``'s over the same tokens;
   o. llama3.2-1b trained at its published widths and depth (bf16,
@@ -178,9 +182,10 @@ exits non-zero):
      ranks' added; the wide contraction a row of its own; ``wkv6``'s
      row with its backward's, ``wkv6_bwd`` also a row of its own;
      ``mds_encode`` also timed at phase o's coded-gradient shape, row 5g,
-     after the counts are read; ``attention`` and ``attention_bwd``, whose
-     launches come from the prefills and train steps of phases e to q),
-     then the result line.
+     after the counts are read; ``attention_mma`` (bf16 at head sizes of
+     64-256), ``attention`` (the SIMT forward: float32, the smoke configs'
+     heads) and ``attention_bwd``, whose launches come from the prefills
+     and train steps of phases e to q), then the result line.
 
 Phases j to p start from a clean card (every model and bridge released)
 and print the memory still allocated.
@@ -190,6 +195,7 @@ the repository's ``src`` is not beside this script.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import subprocess
@@ -478,6 +484,19 @@ def time_graph_ms(fn, n: int = 20) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / n
+
+
+def in_turns(timer, fa, fb, rounds: int = 4) -> tuple:
+    """``timer`` of ``fa`` and of ``fb`` taken in turns (a b b a a b ...),
+    the median of each: a card that warms under load slows both alike."""
+    a, b = [], []
+    for r in range(rounds):
+        for f, out in ((fa, a), (fb, b)) if r % 2 == 0 else \
+                ((fb, b), (fa, a)):
+            out.append(timer(f))
+    a.sort()
+    b.sort()
+    return a[len(a) // 2], b[len(b) // 2]
 
 
 def time_once(fn):
@@ -941,7 +960,9 @@ def phase_c(dev, deepseek_s: int) -> dict:
     rows["wkv6"].update(wkv6_extra)
     rows["wkv6"].update(wkv6_bwd_rows(dev, report))
     attn = attention_rows(dev, report)
-    rows["attention"]["shapes"] = attn["shapes"]
+    for name, route in (("attention_mma", "mma"), ("attention", "simt")):
+        rows[name]["shapes"] = {k: v for k, v in attn["shapes"].items()
+                                if v["route"] == route}
     rows["attention_bwd"]["shapes"] = attn["backward"]
     return rows
 
@@ -1004,7 +1025,12 @@ def _sdpa(q, k, v, window, scale, grad=False):
 #: head chunks), Tq != Tk non-causal with Dv > D, a q_offset with a (B,)
 #: kv_valid (one row seeing few keys), a ragged windowed T with Dv < D,
 #: head sizes below their compiled width (the smoke configs' 16, their
-#: MLA's 24 / 16, 192 / 128's padding to 192), one key
+#: MLA's 24 / 16, 192 / 128's padding to 192), one key; then shapes for the
+#: tensor-core route's steps and tiles (bf16): G = 1 at 64 with a window
+#: across its 96-key steps, G = 6 at 128 with a ragged T (21 positions a
+#: tile), MLA's 192 / 128 with a q_offset and Tq != Tk, G = 16 at 256 with
+#: a window across its 64-key steps, no keys at all (Tk = 0: rows of 0,
+#: log-sum-exp -inf, no loads), non-causal Tq != Tk with a (B,) kv_valid
 ATTN_EDGES = ((2, 40, 40, 4, 2, 16, 16, True, None, 0, None),
               (2, 33, 33, 4, 4, 24, 16, True, None, 0, None),
               (2, 37, 37, 6, 1, 128, 128, True, None, 0, None),
@@ -1015,15 +1041,23 @@ ATTN_EDGES = ((2, 40, 40, 4, 2, 16, 16, True, None, 0, None),
               (1, 200, 200, 2, 1, 256, 64, True, 33, 0, None),
               (3, 64, 64, 8, 8, 192, 192, True, 7, 0, None),
               (2, 45, 45, 4, 4, 128, 192, False, 9, 0, None),
-              (1, 9, 1, 2, 1, 64, 64, False, None, 0, None))
+              (1, 9, 1, 2, 1, 64, 64, False, None, 0, None),
+              (1, 300, 300, 2, 2, 64, 64, True, 200, 0, None),
+              (2, 150, 150, 12, 2, 128, 128, True, None, 0, None),
+              (2, 40, 90, 4, 4, 192, 128, True, None, 50, None),
+              (1, 260, 260, 32, 2, 256, 256, True, 100, 0, None),
+              (2, 7, 0, 4, 2, 128, 128, False, None, 0, None),
+              (1, 24, 200, 6, 1, 64, 64, False, None, 0, (150,)))
 
 
 def attention_edge_sweep(dev) -> None:
     """The attention kernels at ATTN_EDGES in both types against the plain
-    versions, at attention_rows' tolerances; every output finite."""
+    versions, at attention_rows' tolerances (the log-sum-exp at 1e-4, its
+    -inf rows alike); where the tensor-core kernel runs, also against its
+    twin; every output finite."""
     import torch
     from repro_torch.kernels import attention as ka, ref
-    worst = 0.0
+    worst, mma = 0.0, 0
     for (B, Tq, Tk, Hq, Hkv, D, Dv, causal, window, q_off, kv) in ATTN_EDGES:
         for dt in (torch.float32, torch.bfloat16):
             gen = torch.Generator(device=dev).manual_seed(Tq + Tk + D)
@@ -1035,62 +1069,92 @@ def attention_edge_sweep(dev) -> None:
             kvt = None if kv is None else torch.tensor(
                 kv, dtype=torch.int32, device=dev)
             sc = D ** -0.5
+            route = ka.attention_route(dt, D, Dv)
+            mma += route == "mma"
             out, lse = ka.attention_cuda(q, k, v, kvt, causal, window, q_off,
                                          sc)
             grads = ka.attention_bwd_cuda(q, k, v, out, lse, do, kvt, causal,
                                           window, q_off, sc)
             kw = dict(causal=causal, window=window, q_offset=q_off,
                       kv_valid=kvt, scale=sc)
-            want, _ = ref.attention_ref(q, k, v, **kw)
-            want_g = ref.attention_bwd_ref(q, k, v, out, lse, do, **kw)
+            if Tk:
+                want, want_lse = ref.attention_ref(q, k, v, **kw)
+                want_g = ref.attention_bwd_ref(q, k, v, out, lse, do, **kw)
+            else:       # no keys: rows of 0, no gradient
+                want = torch.zeros_like(out)
+                want_lse = torch.full_like(lse, -float("inf"))
+                want_g = [torch.zeros_like(t) for t in (q, k, v)]
+            pairs = [("lse", lse, want_lse)]
+            if route == "mma":
+                tw, tw_lse = ref.attention_mma_ref(q, k, v, **kw)
+                pairs += [("lse against the twin", lse, tw_lse)]
             torch.cuda.synchronize()
             f32 = dt == torch.float32
             tag = (f"attention edge B {B} Tq {Tq} Tk {Tk} Hq {Hq} Hkv {Hkv} "
                    f"D {D} Dv {Dv} causal {causal} window {window} "
-                   f"q_offset {q_off} kv_valid {kv} {dt}")
-            for nm, g, w, step in (
-                    [("out", out, want, 1e-5 if f32 else 2.0 ** -8)]
-                    + [(nm, g, w, 1e-4 if f32 else 2.0 ** -7) for nm, g, w
-                       in zip(("dq", "dk", "dv"), grads, want_g)]):
-                e = max_err(g, w)
-                t = step * (1 + float(w.float().abs().max()))
+                   f"q_offset {q_off} kv_valid {kv} {dt} ({route})")
+            for nm, g, w in pairs:
+                fin = torch.isfinite(w)
+                if not torch.equal(fin, torch.isfinite(g)) or (
+                        fin.any() and max_err(g[fin], w[fin]) > 1e-4):
+                    raise AssertionError(f"{tag} {nm}: finite rows differ "
+                                         f"or err > 1e-4")
+            checks = [("out", out, want, 1e-5 if f32 else 2.0 ** -8)]
+            if route == "mma":
+                checks.append(("out against the twin", out, tw, 2.0 ** -8))
+            checks += [(nm, g, w, 1e-4 if f32 else 2.0 ** -7) for nm, g, w
+                       in zip(("dq", "dk", "dv"), grads, want_g)]
+            for nm, g, w, step in checks:
+                e = max_err(g, w) if g.numel() else 0.0
+                t = step * (1 + (float(w.float().abs().max())
+                                 if w.numel() else 0.0))
                 if e > t or not bool(torch.isfinite(g).all()):
                     raise AssertionError(f"{tag} {nm}: {e} > {t}")
                 worst = max(worst, e / t)
-    print(f"[c] attention: {len(ATTN_EDGES)} edge shapes x 2 types, forward "
-          f"and backward, agree with the plain versions (largest err / tol "
-          f"{worst:.3g})", flush=True)
+    print(f"[c] attention: {len(ATTN_EDGES)} edge shapes x 2 types ({mma} "
+          f"calls on the tensor cores), forward and backward, agree with "
+          f"the plain versions (largest err / tol {worst:.3g})", flush=True)
 
 
 def attention_rows(dev, report) -> dict:
     """The attention kernels against their plain versions
     (``ref.attention_ref`` / ``ref.attention_bwd_ref`` over the
-    reference's 512 blocks) at ATTN_SHAPES: the forward in bf16 (the path)
-    and float32, the backward where the shape has one, each timed single,
-    queued and from a CUDA graph beside the library's same work; windowed
-    rows finite; 16 forward calls bit-equal and 16 backward calls
+    reference's 512 blocks) at ATTN_SHAPES: the forward in bf16 (the path:
+    the tensor-core kernel, ``attention_mma``, also held to its twin
+    ``ref.attention_mma_ref``, and the SIMT kernel on the same inputs) and
+    float32 (SIMT), the backward where the shape has one, each timed
+    single, queued and from a CUDA graph beside the library's same work
+    (the tensor-core forward and the library in turns, medians of four);
+    windowed rows finite; 16 forward calls bit-equal and 16 backward calls
     bit-equal.  Returns the per-shape numbers for the JSON line's rows.
 
     Tolerances, relative to 1 + max |plain|: the forward in float32 1e-5
     (one online softmax in float32, sums in another order and other
-    tiles); in bf16 2^-8 (both round a float32 result to bf16); the
-    gradients in float32 1e-4 (four products and the recomputed P, sums
-    over up to T terms in another order), in bf16 2^-7 (a bf16 step at the
-    largest entry)."""
+    tiles); in bf16 2^-8 (both round a float32 result to bf16; the
+    tensor-core kernel's P is two bf16 parts, 2^-17 of P), the same
+    against the twin; lse 1e-4; the gradients in float32 1e-4 (four
+    products and the recomputed P, sums over up to T terms in another
+    order), in bf16 2^-7 (a bf16 step at the largest entry)."""
     import torch
     from repro_torch.kernels import attention as ka, ref
-    from repro_torch.kernels.plan import attention_plan
+    from repro_torch.kernels.plan import attention_mma_plan, attention_plan
     fwd_rows, bwd_rows = {}, {}
     for label, (B, T, Hq, Hkv, D, Dv, window, scale, bwd) in \
             ATTN_SHAPES.items():
         sc = D ** -0.5 if scale is None else scale
         p = attention_plan(D, Dv, Hq // Hkv, 2)
+        pm = attention_mma_plan(D, Dv, Hq // Hkv)
         print(f"[c] plan attention {label} B {B} T {T} Hq {Hq} Hkv {Hkv} D "
-              f"{D} Dv {Dv}{f' window {window}' if window else ''}: width "
-              f"{p.width}, {p.gt} heads x {p.bq} positions a tile, {p.bk} "
-              f"keys a step, grid {p.grid(B, T, Hkv, Hq // Hkv)}, "
-              f"{p.smem_bytes} B shared, {p.blocks_per_sm} an SM; dQ "
-              f"{p.dq_smem} B, "
+              f"{D} Dv {Dv}{f' window {window}' if window else ''}: "
+              f"tensor cores {pm.dc} / {pm.vc} chunks of 64, {pm.rows} rows "
+              f"({pm.gt} heads x {pm.bq} positions) a tile, {pm.bk} keys a "
+              f"stage, {pm.stages} stages, {pm.threads} threads "
+              f"({pm.consumer_regs} registers a consumer), "
+              f"{pm.blocks(B, T, Hkv, Hq // Hkv)} blocks, {pm.smem_bytes} B "
+              f"shared; SIMT width {p.width}, "
+              f"{p.gt} heads x {p.bq} positions a tile, {p.bk} keys a step, "
+              f"grid {p.grid(B, T, Hkv, Hq // Hkv)}, {p.smem_bytes} B "
+              f"shared, {p.blocks_per_sm} an SM; dQ {p.dq_smem} B, "
               f"{p.dq_blocks_per_sm} an SM; dK / dV {p.bn} keys a block, "
               f"grid {p.dkdv_grid(B, T, Hkv)}, {p.dkdv_smem} B, "
               f"{p.dkdv_blocks_per_sm} an SM", flush=True)
@@ -1098,9 +1162,11 @@ def attention_rows(dev, report) -> dict:
             name = str(dt).split(".")[-1]
             tag = f"attention {label} {name}"
             q, k, v = _attn_inputs(dev, B, T, Hq, Hkv, D, Dv, dt)
+            route = ka.attention_route(dt, D, Dv)
 
-            def call():
-                return ka.attention_cuda(q, k, v, None, True, window, 0, sc)
+            def call(route=None):
+                return ka.attention_cuda(q, k, v, None, True, window, 0, sc,
+                                         route=route)
 
             def plain():
                 return ref.attention_ref(q, k, v, window=window, scale=sc)
@@ -1112,36 +1178,78 @@ def attention_rows(dev, report) -> dict:
             lse_err = max_err(lse, want_lse)
             finite = bool(torch.isfinite(out).all())
             if err > tol or lse_err > 1e-4 or not finite:
-                raise AssertionError(f"{tag}: kernel disagrees with its "
-                                     f"plain version (out {err} > {tol}, "
-                                     f"lse {lse_err}, finite {finite})")
-            nums = dict(max_abs_err=err, tol=tol, lse_err=lse_err,
-                        plain_ms=plain_ms)
+                raise AssertionError(f"{tag}: kernel ({route}) disagrees "
+                                     f"with its plain version (out {err} > "
+                                     f"{tol}, lse {lse_err}, finite "
+                                     f"{finite})")
+            nums = dict(route=route, max_abs_err=err, tol=tol,
+                        lse_err=lse_err, plain_ms=plain_ms)
             if dt == torch.bfloat16:
+                twin_ms, (tw, tw_lse) = time_once(
+                    lambda: ref.attention_mma_ref(q, k, v, window=window,
+                                                  scale=sc))
+                twin_err, twin_lse = max_err(out, tw), max_err(lse, tw_lse)
+                if twin_err > tol or twin_lse > 1e-4:
+                    raise AssertionError(f"{tag}: the tensor-core kernel "
+                                         f"disagrees with its twin (out "
+                                         f"{twin_err} > {tol}, lse "
+                                         f"{twin_lse})")
+                del tw, tw_lse
+                simt_out, simt_lse = call("simt")
+                simt_err = max_err(simt_out, want)
+                simt_lse_err = max_err(simt_lse, want_lse)
+                if simt_err > tol or simt_lse_err > 1e-4:
+                    raise AssertionError(f"{tag}: the SIMT kernel disagrees "
+                                         f"({simt_err} > {tol}, lse "
+                                         f"{simt_lse_err})")
+                del simt_out, simt_lse
                 if label == ATTN_ROW:
                     repeat_equal(f"{tag} out", out, lambda: call()[0])
-                ms = time_ms(call, 10)
-                q_ms = time_queued_ms(call, 10)
-                g_ms = time_graph_ms(call, 5)
+                    repeat_equal(f"{tag} lse", lse, lambda: call()[1])
+                simt = functools.partial(call, "simt")
+                simt_g = time_graph_ms(simt, 5)
+                # the kernel and the library in turns, single and from a
+                # graph
                 lib, _ = _sdpa(q, k, v, window, sc)
-                lib_ms = time_ms(lib, 10)
+                ms, lib_ms = in_turns(lambda f: time_ms(f, 10), call, lib)
+                g_ms, lib_g = in_turns(lambda f: time_graph_ms(f, 5), call,
+                                       lib)
+                q_ms = time_queued_ms(call, 10)
                 lib_err = max_err(lib().transpose(1, 2), want)
                 bnd = _attn_bound(B, T, Hq, Hkv, D, Dv, window, 2)
                 nums.update(ms=ms, queued_ms=q_ms, graph_ms=g_ms,
-                            library_ms=lib_ms, bound_ms=bnd[0],
-                            bound_by=bnd[1])
-                print(f"[c] {tag}: max_abs_err={err:.3e} (tol {tol:.3e}), "
-                      f"lse {lse_err:.3e}, finite; kernel {ms:.4f} ms "
-                      f"single, {q_ms:.4f} queued, {g_ms:.4f} from a graph; "
-                      f"plain {plain_ms:.2f} ms; library {lib_ms:.4f} ms "
-                      f"(its error {lib_err:.3e}); bound {bnd[0]:.4f} ms "
-                      f"({bnd[1]}), graph / bound {g_ms / bnd[0]:.2f}, "
-                      f"graph / library {g_ms / lib_ms:.2f}", flush=True)
+                            simt_graph_ms=simt_g, library_ms=lib_ms,
+                            library_graph_ms=lib_g, bound_ms=bnd[0],
+                            bound_by=bnd[1], twin_err=twin_err,
+                            twin_lse_err=twin_lse, twin_ms=twin_ms,
+                            simt_err=simt_err)
+                print(f"[c] {tag}: tensor cores max_abs_err={err:.3e} (tol "
+                      f"{tol:.3e}), lse {lse_err:.3e}, against the twin "
+                      f"{twin_err:.3e} (lse {twin_lse:.3e}), finite; SIMT "
+                      f"{simt_err:.3e}; kernel {ms:.4f} ms single, "
+                      f"{q_ms:.4f} queued, {g_ms:.4f} from a graph; SIMT "
+                      f"{simt_g:.4f} from a graph; plain {plain_ms:.2f} ms, "
+                      f"twin {twin_ms:.2f} ms; library {lib_ms:.4f} ms "
+                      f"single, {lib_g:.4f} from a graph (its error "
+                      f"{lib_err:.3e}); bound {bnd[0]:.4f} ms ({bnd[1]}), "
+                      f"graph / bound {g_ms / bnd[0]:.2f}, graph / library "
+                      f"graph {g_ms / lib_g:.2f}, SIMT / tensor cores "
+                      f"{simt_g / g_ms:.2f}", flush=True)
                 if label == ATTN_ROW:
-                    report("attention", "src/repro_torch/csrc/attention.cu",
+                    report("attention_mma",
+                           "src/repro_torch/csrc/attention_mma.cu",
                            "src/repro/models/attention.py:72", err, tol, ms,
                            plain_ms, lib_ms, bnd, queued_ms=q_ms,
-                           graph_ms=g_ms)
+                           graph_ms=g_ms, library_graph_ms=lib_g,
+                           simt_graph_ms=simt_g)
+                    # the SIMT kernel's row: the same inputs, its parent's
+                    # figure (its main-path calls are float32 and the
+                    # smoke configs' heads)
+                    report("attention", "src/repro_torch/csrc/attention.cu",
+                           "src/repro/models/attention.py:72", simt_err,
+                           tol, time_ms(simt, 3), plain_ms, lib_ms, bnd,
+                           queued_ms=time_queued_ms(simt, 3),
+                           graph_ms=simt_g)
             else:
                 print(f"[c] {tag}: max_abs_err={err:.3e} (tol {tol:.3e}), "
                       f"lse {lse_err:.3e}, finite; plain {plain_ms:.2f} ms",
@@ -3507,13 +3615,14 @@ def phase_s(dev) -> None:
     """llama3.2-1b prefilled at its published widths and depth, 1 x 32 768
     tokens (the prefill_32k length), through ``prefill``, twice (the
     first call meets a cold allocator): tok/s and peak GiB of the second,
-    the ``attention`` launches of a prefill (one a layer, 16).  Its
+    the ``attention`` calls of a prefill (one a layer, 16, every one a
+    launch of the tensor-core kernel).  Its
     logits at the last LONG_TAIL positions (a second prefill keeping the
     layers' states: the last one through the final norm and the head) are
     gated finite and within phase j's gate of ``model_fwd``'s over the same
     tokens, and its last position against the prefill's own."""
     import torch
-    from repro_torch import kernels
+    from repro_torch.kernels import attention as ka
     from repro_torch.launch import serve
     from repro_torch.models import layers as ly
     from repro_torch.models import model_fwd, prefill
@@ -3532,24 +3641,26 @@ def phase_s(dev) -> None:
         for _ in range(2):          # the first call from a cold allocator
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
-            n0 = kernels.launch_counts()["attention"]
+            n0, m0 = ka.LAUNCHES, ka.MMA_LAUNCHES
             t0 = time.perf_counter()
             last, caches = prefill(params, {"tokens": toks}, caches,
                                    cfg=cfg)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-            n_attn = kernels.launch_counts()["attention"] - n0
+            n_attn, n_mma = ka.LAUNCHES - n0, ka.MMA_LAUNCHES - m0
         t_pre = times[-1]
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         print(f"[s] {cfg.name}: d_model {cfg.d_model}, {cfg.n_layers} "
               f"layers (not cut), {cfg.dtype}; prefill 1 x {T} tokens: "
               f"{t_pre * 1e3:.1f} ms (the first call {times[0] * 1e3:.1f}), "
               f"{T / t_pre:.1f} tok/s, peak {peak:.2f} GiB (the KV cache "
-              f"{kv_gib:.2f} GiB); attention launches {n_attn} (one a "
-              f"layer: {cfg.n_layers})", flush=True)
-        if n_attn != cfg.n_layers:
+              f"{kv_gib:.2f} GiB); attention launches {n_attn}, on the "
+              f"tensor cores {n_mma} (one a layer: {cfg.n_layers})",
+              flush=True)
+        if n_attn != cfg.n_layers or n_mma != cfg.n_layers:
             raise AssertionError(f"phase s: {n_attn} attention launches, "
-                                 f"expected {cfg.n_layers}")
+                                 f"{n_mma} on the tensor cores, expected "
+                                 f"{cfg.n_layers}")
         _, _, hiddens = prefill(params, {"tokens": toks}, caches, cfg=cfg,
                                 collect_layers=True)
         h = ly.rms_norm(hiddens[-1][:, -LONG_TAIL:], params["final_norm"],
@@ -4695,7 +4806,8 @@ def main() -> int:
             "deepseek_chunk", "launch_floor",
             "serving_prefill_bfloat16", "serving_prefill_float32",
             "decode_bfloat16", "decode_float32", "long_prefill_float32",
-            "train_bfloat16", "backward", "shapes")
+            "train_bfloat16", "backward", "shapes", "simt_graph_ms",
+            "library_graph_ms")
     print(json.dumps({"kernels": [{k: rows[n][k] for k in keys
                                    if k in rows[n]}
                                   for n in ("matmul", "coded_matvec",
@@ -4704,7 +4816,8 @@ def main() -> int:
                                             "parity_contract",
                                             "parity_contract_wide",
                                             "gen_parity_matvec", "wkv6",
-                                            "wkv6_bwd", "attention",
+                                            "wkv6_bwd", "attention_mma",
+                                            "attention",
                                             "attention_bwd")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -69,12 +69,13 @@
 // every element offset is 64-bit (K S is 4.9e9 floats at that shape).  S
 // not a multiple of 4, or an A or output base not 16-byte aligned, takes
 // the same kernel with 4-byte accesses, so no load reads past a row.
-#include <cuda.h>
-
 #include "gemm_common.cuh"
+#include "hopper.cuh"
 #include "sgemm.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int BK = 16, STAGES = 4, GROUP_M = 8;
 
@@ -88,51 +89,15 @@ __device__ __forceinline__ void dmma_16x8x8(double (&c)[4],
       : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
 }
 
-__device__ __forceinline__ unsigned saddr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
 __device__ __forceinline__ double lds64(unsigned addr) {
   double v;
   asm volatile("ld.shared.f64 %0, [%1];\n" : "=d"(v) : "r"(addr));
   return v;
 }
-__device__ __forceinline__ void mb_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(saddr(bar)),
-               "r"(count));
-}
-__device__ __forceinline__ void mb_arrive(uint64_t* bar) {
-  asm volatile(
-      "{\n\t.reg .b64 st;\n\tmbarrier.arrive.shared.b64 st, [%0];\n\t}\n"
-      ::"r"(saddr(bar)) : "memory");
-}
-// the producer's arrival, announcing `bytes` of TMA traffic to come
-__device__ __forceinline__ void mb_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile(
-      "{\n\t.reg .b64 st;\n\t"
-      "mbarrier.arrive.expect_tx.shared.b64 st, [%0], %1;\n\t}\n"
-      ::"r"(saddr(bar)), "r"(bytes) : "memory");
-}
 // an arrival once this thread's earlier cp.async copies have landed
 __device__ __forceinline__ void mb_arrive_cp_async(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n"
                ::"r"(saddr(bar)) : "memory");
-}
-__device__ __forceinline__ void mb_wait(uint64_t* bar, unsigned parity) {
-  asm volatile(
-      "{\n\t.reg .pred P1;\n\tLAB_WAIT:\n\t"
-      "mbarrier.try_wait.parity.shared.b64 P1, [%0], %1;\n\t"
-      "@P1 bra DONE;\n\tbra LAB_WAIT;\n\tDONE:\n\t}\n"
-      ::"r"(saddr(bar)), "r"(parity) : "memory");
-}
-// one TMA box of a 3-D tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
-      ::"r"(saddr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-        "r"(saddr(bar)), "r"(c0), "r"(c1), "r"(c2) : "memory");
 }
 
 template <int BM, int BN, int WM, int WN, int MIN_BLOCKS>
@@ -340,27 +305,6 @@ dgemm_kernel(const __grid_constant__ CUtensorMap tG,
         if (c + 1 < N) crow[c + 1] = acc[i][j][2 * h + 1];
       }
     }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // A 3-D float64 tensor (d0 innermost; row strides s1, s2 in elements) read

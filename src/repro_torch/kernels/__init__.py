@@ -3,7 +3,8 @@ executor, the streaming verify, the RWKV-6 WKV recurrence and its
 backward, the blockwise attention and its backward), their plain-torch twins (:mod:`.ref`) and the padding/dispatch
 layer (:mod:`.ops`).
 
-Each wrapper counts its launches in a plain integer;
+Each wrapper counts its launches in a plain integer (the attention
+forward also its calls on either kernel, ``attention.LAUNCHES``);
 :func:`launch_counts` / :func:`reset_launch_counts` read and clear them, so
 a run can show that its path really went through the kernels.
 """
@@ -24,7 +25,8 @@ def launch_counts() -> Dict[str, int]:
             "parity_contract_wide": mds_encode.WIDE_CONTRACT_LAUNCHES,
             "wkv6": wkv6.WKV6_LAUNCHES,
             "wkv6_bwd": wkv6.WKV6_BWD_LAUNCHES,
-            "attention": attention.LAUNCHES,
+            "attention": attention.SIMT_LAUNCHES,
+            "attention_mma": attention.MMA_LAUNCHES,
             "attention_bwd": attention.BWD_LAUNCHES}
 
 
@@ -39,4 +41,6 @@ def reset_launch_counts() -> None:
     wkv6.WKV6_LAUNCHES = 0
     wkv6.WKV6_BWD_LAUNCHES = 0
     attention.LAUNCHES = 0
+    attention.MMA_LAUNCHES = 0
+    attention.SIMT_LAUNCHES = 0
     attention.BWD_LAUNCHES = 0

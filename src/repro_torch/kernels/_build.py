@@ -24,7 +24,7 @@ __all__ = ["SOURCES", "build_all", "library", "nvcc_path"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("matmul", "coded_matvec", "mds_encode", "mds_encode_gemm",
-           "wkv6", "wkv6_bwd", "attention", "attention_bwd")
+           "wkv6", "wkv6_bwd", "attention", "attention_mma", "attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

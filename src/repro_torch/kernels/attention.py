@@ -3,12 +3,18 @@ reference's jnp ``repro.models.attention.flash_attention`` (no Pallas
 kernel: its blockwise online softmax bounds XLA's compiled memory, and
 ``jax``'s autodiff of the scan gives its gradient).
 
-The CUDA kernels are ``csrc/attention.cu`` (the forward: one block per
-query tile of a kv head's group, the keys its masks leave, an online
-softmax in float32; writes the rows' log-sum-exp) and
-``csrc/attention_bwd.cu`` (the backward: a dQ kernel, which also forms D_i
-= Σ dO ⊙ O, then a dK / dV kernel; no atomics), on the plan of
-:func:`repro_torch.kernels.plan.attention_plan`.  They are two operators,
+The CUDA kernels are two forwards -- ``csrc/attention_mma.cu`` (bf16 at
+head sizes that are multiples of 16 up to 256, the larger above 32: Q Kᵀ
+and P V on the tensor cores with ``wgmma``, K / V brought by TMA, on the
+plan of :func:`repro_torch.kernels.plan.attention_mma_plan`) and
+``csrc/attention.cu`` (float32, and the smoke configs' heads of 16 and 24:
+SIMT, on the FP32 pipe) -- each one block per query tile of a kv head's
+group, the keys its masks leave, an online softmax in float32, writing
+the rows' log-sum-exp; and ``csrc/attention_bwd.cu`` (the backward: a dQ
+kernel, which also forms D_i = Σ dO ⊙ O, then a dK / dV kernel; no
+atomics) on the plan of :func:`repro_torch.kernels.plan.attention_plan`.
+Which forward a call takes follows from its type and head sizes alone
+(:func:`attention_route`), never from a failure.  They are two operators,
 ``torch.ops.repro_torch.attention`` (:func:`attention_op`) and
 ``attention_bwd``, the second the first's gradient: on CUDA tensors they
 launch the kernels or raise, on CPU tensors they run their plain versions
@@ -27,15 +33,21 @@ import torch
 from . import _build
 from ._launch import (F32, I, P, check_cuda, fake_only, raise_on_error,
                       stream_ptr)
-from .plan import attention_flops, attention_plan
+from .plan import attention_flops, attention_mma_plan, attention_plan
 from .ref import attention_bwd_ref, attention_ref
 
 __all__ = ["attention_cuda", "attention_bwd_cuda", "attention_op",
-           "attention_bwd_op", "LAUNCHES", "BWD_LAUNCHES"]
+           "attention_bwd_op", "attention_route", "LAUNCHES", "MMA_LAUNCHES",
+           "SIMT_LAUNCHES", "BWD_LAUNCHES"]
 
-#: kernel launches since the last reset (see :mod:`repro_torch.kernels`):
-#: the forward, and the backward (one count a call of its two kernels)
+#: launches since the last reset (see :mod:`repro_torch.kernels`): the
+#: forward's calls on the card, either kernel (``LAUNCHES``), and each
+#: forward kernel's own (``MMA_LAUNCHES``: csrc/attention_mma.cu,
+#: ``SIMT_LAUNCHES``: csrc/attention.cu); the backward (one count a call of
+#: its two kernels)
 LAUNCHES = 0
+MMA_LAUNCHES = 0
+SIMT_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 #: input dtype → the C entry point's ``types`` code
@@ -48,6 +60,16 @@ def _lib():
         lib.repro_attention.argtypes = ([I] + [P] * 6 + [I] * 11 + [F32]
                                         + [I] * 7 + [P])
         lib.repro_attention.restype = I
+        lib._typed = True
+    return lib
+
+
+def _mma_lib():
+    lib = _build.library("attention_mma")
+    if not getattr(lib, "_typed", False):
+        lib.repro_attention_mma.argtypes = ([P] * 6 + [I] * 11 + [F32]
+                                            + [I] * 10 + [P])
+        lib.repro_attention_mma.restype = I
         lib._typed = True
     return lib
 
@@ -87,19 +109,42 @@ def _check(name: str, q, k, v, kv_valid) -> Tuple[int, ...]:
     return B, Tq, Tk, Hq, Hkv, D, Dv
 
 
+def attention_route(dtype: torch.dtype, D: int, Dv: int) -> str:
+    """The forward kernel a call of this type and head sizes takes: "mma"
+    (``csrc/attention_mma.cu``) where :func:`attention_mma_plan` takes it --
+    bf16, D and Dv multiples of 16 up to 256, the larger above 32 -- else
+    "simt" (``csrc/attention.cu``)."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    try:
+        attention_mma_plan(D, Dv, 1)
+    except ValueError:
+        return "simt"
+    return "mma"
+
+
 def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    kv_valid: Optional[torch.Tensor], causal: bool,
-                   window: Optional[int], q_offset: int, scale: float
+                   window: Optional[int], q_offset: int, scale: float,
+                   route: Optional[str] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The attention forward on the card.  q (B, Tq, Hq, D), k (B, Tk, Hkv,
-    D), v (B, Tk, Hkv, Dv) float32 or bfloat16, one type, contiguous;
-    ``kv_valid`` (B,) int32 or None.  Returns (out (B, Tq, Hq, Dv) in the
-    input type, lse (B, Hq, Tq) float32), one launch on the
-    :func:`attention_plan` of the heads."""
-    global LAUNCHES
+    D), v (B, Tk, Hkv, Dv) float32 or bfloat16, one type, contiguous (the
+    tensor-core kernel's TMA wants 16-byte aligned bases, as allocations
+    are); ``kv_valid`` (B,) int32 or None.  Returns (out (B, Tq, Hq, Dv) in the
+    input type, lse (B, Hq, Tq) float32), one launch of the kernel of
+    :func:`attention_route` (``route`` "mma" or "simt" names it instead:
+    ``chip_smoke.py`` times the SIMT kernel on the tensor-core route's
+    inputs)."""
+    global LAUNCHES, MMA_LAUNCHES, SIMT_LAUNCHES
     dev = q.device
     B, Tq, Tk, Hq, Hkv, D, Dv = _check("attention", q, k, v, kv_valid)
-    p = attention_plan(D, Dv, Hq // Hkv, q.element_size())
+    route = route or attention_route(q.dtype, D, Dv)
+    if route not in ("mma", "simt"):
+        raise ValueError(f"attention: route must be 'mma' or 'simt', got "
+                         f"{route!r}")
+    p = (attention_mma_plan if route == "mma" else attention_plan)(
+        D, Dv, Hq // Hkv, q.element_size())
     for name, t in (("q", q), ("k", k), ("v", v), ("kv_valid", kv_valid)):
         if t is not None:
             check_cuda(f"attention {name}", t, t.dtype, t.dim(), dev)
@@ -107,14 +152,25 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((B, Hq, Tq), dtype=torch.float32, device=dev)
     if B == 0 or Tq == 0:
         return out, lse
-    err = _lib().repro_attention(
-        _TYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if kv_valid is None else kv_valid.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), B, Tq, Tk, Hq, Hkv, D, Dv, int(causal),
-        int(window is not None), 0 if window is None else int(window),
-        int(q_offset), float(scale), p.width, p.gt, p.bq, p.bk, p.threads,
-        p.smem_bytes, p.blocks_per_sm, stream_ptr(dev))
-    raise_on_error("attention", err)
+    args = (None if kv_valid is None else kv_valid.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), B, Tq, Tk, Hq, Hkv, D, Dv,
+            int(causal), int(window is not None),
+            0 if window is None else int(window), int(q_offset),
+            float(scale))
+    if route == "mma":
+        err = _mma_lib().repro_attention_mma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), *args, p.dc, p.vc,
+            p.rows, p.gt, p.bq, p.bk, p.stages, p.threads, p.smem_bytes,
+            p.blocks_per_sm, stream_ptr(dev))
+        raise_on_error("attention_mma", err)
+        MMA_LAUNCHES += 1
+    else:
+        err = _lib().repro_attention(
+            _TYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *args, p.width, p.gt, p.bq, p.bk, p.threads, p.smem_bytes,
+            p.blocks_per_sm, stream_ptr(dev))
+        raise_on_error("attention", err)
+        SIMT_LAUNCHES += 1
     LAUNCHES += 1
     return out, lse
 

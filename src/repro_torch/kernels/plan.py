@@ -35,8 +35,8 @@ __all__ = ["TileConfig", "GemmPlan", "CONFIGS", "gemm_plan", "StreamPlan",
            "ContractPlan", "contract_plan", "contract_launches",
            "Wkv6Plan", "wkv6_plan", "Wkv6BwdPlan", "wkv6_bwd_plan",
            "wkv6_ops", "wkv6_bwd_ops", "AttentionPlan", "attention_plan",
-           "attention_block_range", "attention_pairs",
-           "attention_masked_pairs", "attention_flops"]
+           "AttentionMmaPlan", "attention_mma_plan", "attention_block_range",
+           "attention_pairs", "attention_masked_pairs", "attention_flops"]
 
 #: no slab shorter than this many K elements (the second pass and the
 #: pipeline's fill cost more than a shorter slab saves)
@@ -672,6 +672,80 @@ def attention_plan(D: int, Dv: int, G: int, esz: int = 2) -> AttentionPlan:
     return AttentionPlan(w, gt, bq, bk, bn, ATTN_THREADS, fwd, dq, dkdv,
                          _attn_resident(fwd), _attn_resident(dq),
                          _attn_resident(dkdv, ATTN_DKDV_MAX_BLOCKS))
+
+
+# -- attention on the tensor cores (csrc/attention_mma.cu) --------------------
+#
+# The bf16 forward's route: a tile is ``rows`` query rows, 64 a consumer
+# warpgroup, ``gt`` of a kv head's G query heads x ``bq`` positions,
+# position-major; a producer warpgroup brings K and V into a ring of
+# ``stages`` with TMA, ``bk`` keys a stage.  Head sizes run in 64-column
+# chunks, ``dc`` of D and ``vc`` of Dv: MLA's 192 / 128 as (3, 2), every
+# other pair at the square of the larger (its extra columns zero).  Up to
+# 64 columns (llama3.2-1b's 64) a block has three consumer warpgroups and
+# 96-key stages (a thread's 160 registers hold S, P's two parts and O);
+# wider heads two, and 128-key stages up to 128 columns, else 64.  The attention
+# backward stays on :func:`attention_plan`.
+
+#: shared bytes the ring may fill (Q, the stages, 1 KB for alignment)
+ATTN_MMA_SMEM_BUDGET = 204800
+ATTN_MMA_MAX_STAGES = 4
+#: the producers keep this many registers a thread; ``setmaxnreg`` hands
+#: the rest of their share to the consumers
+ATTN_MMA_PRODUCER_REGS = 24
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionMmaPlan:
+    dc: int                 # 64-column chunks of D (queries, keys)
+    vc: int                 # 64-column chunks of Dv (values)
+    rows: int               # query rows a tile: 64 a consumer warpgroup
+    gt: int                 # query heads of the group a tile
+    bq: int                 # query positions a tile (gt * bq <= rows)
+    bk: int                 # keys a stage
+    stages: int             # stages of the K / V ring
+    threads: int            # the consumers and a producer warpgroup
+    smem_bytes: int
+    regs: int               # registers a thread at launch (ptxas's grant)
+    consumer_regs: int      # a consumer's after ``setmaxnreg``
+    blocks_per_sm: int
+
+    def blocks(self, B: int, Tq: int, Hkv: int, G: int) -> int:
+        """The launch's one-dimensional grid: query tiles x kv heads x head
+        chunks x batch rows."""
+        return _cdiv(Tq, self.bq) * Hkv * _cdiv(G, self.gt) * B
+
+
+def attention_mma_plan(D: int, Dv: int, G: int,
+                       esz: int = 2) -> AttentionMmaPlan:
+    """The tensor-core forward's launch plan for bf16 (``esz`` 2) head sizes
+    D and Dv, multiples of 16 up to 256 with the larger above 32, and G
+    query heads a kv head.  Raises ValueError for what the kernel does not
+    take (float32, width 32, a head size not a multiple of 16): those calls
+    run on :func:`attention_plan`'s SIMT kernel."""
+    if esz != 2 or G < 1 or not all(16 <= d <= 256 and d % 16 == 0
+                                    for d in (D, Dv)) or max(D, Dv) <= 32:
+        raise ValueError(f"attention_mma_plan: bf16 head sizes D={D} Dv={Dv} "
+                         f"must be multiples of 16 up to 256, the larger "
+                         f"above 32, G={G} at least 1, esz={esz} 2")
+    dc, vc = _cdiv(D, 64), _cdiv(Dv, 64)
+    if (dc, vc) != (3, 2):
+        dc = vc = max(dc, vc)
+    nwg = 3 if dc == 1 else 2
+    bk = {1: 96, 2: 128}.get(dc, 64)
+    rows, threads = 64 * nwg, 128 * (nwg + 1)
+    q_bytes = dc * rows * 128
+    stage = (dc + vc) * bk * 128
+    stages = min(ATTN_MMA_MAX_STAGES,
+                 (ATTN_MMA_SMEM_BUDGET - 1024 - q_bytes) // stage)
+    smem = 1024 + q_bytes + stages * stage
+    regs = 65536 // threads // 8 * 8
+    consumer = ((regs * threads - 128 * ATTN_MMA_PRODUCER_REGS)
+                // (128 * nwg) // 8 * 8)
+    gt = min(G, rows)
+    resident = min(ATTN_SM_SMEM // (smem + 1024), 65536 // (threads * regs))
+    return AttentionMmaPlan(dc, vc, rows, gt, rows // gt, bk, stages,
+                            threads, smem, regs, consumer, resident)
 
 
 def _visible(Tq: int, Tk: int, causal: bool, window: Optional[int],

@@ -19,14 +19,14 @@ from typing import Optional
 
 import torch
 
-from .plan import attention_block_range
+from .plan import attention_block_range, attention_mma_plan
 
 __all__ = ["matmul_ref", "coded_matvec_ref", "coded_matvec_batch_ref",
            "mds_encode_ref", "threefry2x32_ref", "counter_parity_rows_ref",
            "parity_contract_ref", "gen_parity_ref", "wkv6_chunk_ref",
            "wkv6_chunked_ref", "wkv6_subchunk_ref", "wkv6_seq_ref",
            "wkv6_bwd_ref", "wkv6_bwd_chunked_ref", "attention_ref",
-           "attention_bwd_ref"]
+           "attention_mma_ref", "attention_bwd_ref"]
 
 _M32 = 0xFFFFFFFF
 _TF_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -581,6 +581,85 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lse = torch.cat(lse_blocks, dim=3)[:, :, :, :Tq]
     return (out.permute(0, 3, 1, 2, 4).reshape(B, Tq, Hq, Dv).to(q.dtype),
             lse.reshape(B, Hq, Tq).detach())
+
+
+def _bf16_cut(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` cut to bf16 (its top 16 bits: rounded toward zero),
+    as float32."""
+    return (x.view(torch.int32) & -65536).view(torch.float32)
+
+
+def attention_mma_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      q_offset: int = 0, kv_valid=None,
+                      scale: Optional[float] = None,
+                      block_k: Optional[int] = None, block_q: int = 1024,
+                      p_parts: int = 2):
+    """The plain twin of ``csrc/attention_mma.cu``, the tensor-core forward
+    of bf16 attention: :func:`attention_ref`'s function (same layouts,
+    masks, rows that see no key, log-sum-exp) in that kernel's arithmetic.
+    Keys go in steps of ``block_k`` (the plan's ``bk`` by default) aligned
+    to its multiples, over the range a block of ``block_q`` query
+    positions can see (a step a row cannot see leaves it exactly as it
+    was, so the query blocks change nothing); scores are float32 sums of
+    the inputs' products, scaled into log2 units by ``scale * log2(e)``
+    rounded to float32; the running max, denominator and numerator are
+    float32, the exponentials exp2; P enters P V as the sum of two bf16
+    parts cut from its bits, hi = P's top 16 bits and lo = the top 16 of
+    P - hi (``p_parts`` 1: P rounded to one bf16 part instead, which
+    misses the kernel's gate at rows that see few keys; the denominator
+    sums P itself).  Returns (out (B, Tq, Hq, Dv) in q's
+    type, lse (B, Hq, Tq) float32, ln 2 (m + log2 l), -inf for a row that
+    sees no key).  Only the CPU tests and ``chip_smoke.py`` call it."""
+    B, Tq, Hq, D = q.shape
+    _, Tk, Hkv, Dv = v.shape
+    G = Hq // Hkv
+    dev = q.device
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    bk = block_k or attention_mma_plan(D, Dv, G).bk
+    sl2 = float(torch.tensor(scale * 1.4426950408889634,
+                             dtype=torch.float32))
+    qh = q.reshape(B, Tq, Hkv, G, D).permute(0, 2, 3, 1, 4).float()
+    kh = k.permute(0, 2, 1, 3).float()
+    vh = v.permute(0, 2, 1, 3).float()
+    kv = _kv_limit(kv_valid, Tk, 0, dev)
+    out = torch.zeros((B, Hkv, G, Tq, Dv), device=dev)
+    lse = torch.full((B, Hkv, G, Tq), -math.inf, device=dev)
+    for i0 in range(0, Tq, block_q):
+        n = min(block_q, Tq - i0)
+        q_blk = qh[:, :, :, i0:i0 + n]
+        q_pos = q_offset + i0 + torch.arange(n, device=dev)
+        hi = min(Tk, q_offset + i0 + n) if causal else Tk
+        lo = 0 if window is None else max(0, q_offset + i0 - window + 1)
+        m = torch.full((B, Hkv, G, n), -math.inf, device=dev)
+        den = torch.zeros((B, Hkv, G, n), device=dev)
+        num = torch.zeros((B, Hkv, G, n, Dv), device=dev)
+        for k0 in range(lo // bk * bk, hi if hi > lo else 0, bk):
+            keys = slice(k0, min(k0 + bk, Tk))
+            k_pos = torch.arange(keys.start, keys.stop, device=dev)
+            s = torch.einsum("bhgqd,bhkd->bhgqk", q_blk, kh[:, :, keys]) * sl2
+            s = torch.where(_tile_mask(q_pos, k_pos, causal, window, kv), s,
+                            -math.inf)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # a row with nothing seen yet: corr and p are 0, not NaN
+            m_use = torch.where(torch.isneginf(m_new), 0.0, m_new)
+            corr = torch.exp2(m - m_use)
+            p = torch.exp2(s - m_use[..., None])
+            den = den * corr + p.sum(dim=-1)
+            hi = _bf16_cut(p) if p_parts == 2 else p.bfloat16().float()
+            num = num * corr[..., None] + torch.einsum(
+                "bhgqk,bhkd->bhgqd", hi, vh[:, :, keys])
+            if p_parts == 2:
+                num = num + torch.einsum("bhgqk,bhkd->bhgqd",
+                                         _bf16_cut(p - hi), vh[:, :, keys])
+            m = m_new
+        out[:, :, :, i0:i0 + n] = num / torch.clamp(den, min=1e-30)[..., None]
+        lse[:, :, :, i0:i0 + n] = torch.where(
+            den > 0, (torch.where(torch.isneginf(m), 0.0, m)
+                      + torch.log2(torch.clamp(den, min=1e-30))) * math.log(2),
+            -math.inf)
+    return (out.permute(0, 3, 1, 2, 4).reshape(B, Tq, Hq, Dv).to(q.dtype),
+            lse.reshape(B, Hq, Tq))
 
 
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
